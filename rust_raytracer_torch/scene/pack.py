@@ -1,0 +1,157 @@
+"""ScenePack — the flat scene as tensors on one device.
+
+Port of rust_raytracer_tpu/scene/pack.py: the same fields (see that module
+for the meaning of each table), as a NamedTuple of torch tensors, except the
+tables only other traversals read (HOST_ONLY_FIELDS: the threaded-BVH rows,
+the wavefront supernode tables, and `tri_geom` / `bvh8_aabb`, whose content
+the kernel reads repacked), plus the tables the CUDA BVH8 traversal kernel
+reads (ops/bvh8.py), derived once when the pack is built:
+
+  bvh8_box   (n8, 8, 6) f32   child AABBs, lanes 0-5 of the reference's
+                              (n8, 8, 128) `bvh8_aabb`
+  tri_rows   (n_clusters * 128, 12) f32   one 48-byte row per padded
+                              triangle slot: v0(0:3) e1(3:6) e2(6:9)
+                              hit_back(9) 0(10:12) — rows 0-9 of the
+                              reference's `tri_geom`, triangle-major
+  bvh8_depth int              levels of internal BVH8 nodes on the longest
+                              root-to-leaf path (bounds the kernel's stack)
+
+Material, primitive, light and volume ids are the reference's.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+# Material type ids
+MAT_LAMBERTIAN = 0
+MAT_METAL = 1
+MAT_DIELECTRIC = 2
+MAT_GLOSSY = 3
+MAT_EMISSIVE = 4
+MAT_ISOTROPIC = 5
+MAT_NORMAL_DEBUG = 6
+
+# Primitive kinds
+PRIM_NONE = 0
+PRIM_SPHERE = 1
+PRIM_PLANE = 2
+PRIM_TRIANGLE = 3
+PRIM_VOLUME = 4
+PRIM_SKY = 5
+PRIM_SUN = 6
+
+# Light kinds
+LIGHT_SPHERE = 0
+LIGHT_PLANE = 1
+LIGHT_SKY = 2
+LIGHT_SUN = 3
+LIGHT_PROXY = 4
+
+# Volume boundary kinds
+VOL_SPHERE = 0
+VOL_BOX = 1
+VOL_MESH = 2
+
+# The reference ScenePack's array fields, in its order (tex_data excluded).
+LEAF_FIELDS = (
+    "sph_center", "sph_radius", "sph_mat", "sph_inv", "sph_fwd",
+    "pln_corner", "pln_uhalf", "pln_vhalf", "pln_dual_u", "pln_dual_v",
+    "pln_normal", "pln_area", "pln_backface", "pln_mat",
+    "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
+    "tri_uv0", "tri_uv1", "tri_uv2", "tri_has_uv", "tri_hit_back", "tri_mat",
+    "tri_attr",
+    "bvh_min", "bvh_max", "bvh_hit_link", "bvh_miss_link", "bvh_leaf_start",
+    "bvh_rows", "tri_geom", "bvh8_aabb", "bvh8_child",
+    "wf_cl_lo", "wf_cl_hi", "wf_sn_lo", "wf_sn_hi", "wf_sn_start",
+    "wf_sn_bounds",
+    "vol_kind", "vol_center", "vol_radius", "vol_axes", "vol_halfsize",
+    "vol_neg_inv_density", "vol_mat", "vol_tri_v0", "vol_tri_e1", "vol_tri_e2",
+    "sky_tex", "sun_dir", "sun_tex",
+    "mat_type", "mat_albedo_tex", "mat_rough_tex", "mat_inv_ior", "mat_ior",
+    "mat_normal_tex",
+    "light_kind", "light_idx", "lgt_sph_center", "lgt_sph_radius",
+    "tex_const", "background",
+)
+
+# Reference leaves the port reads nowhere: the tables of the traversals not
+# ported yet (ROADMAP K2, K3) and the reference layouts of the kernel tables.
+# They stay in compile_numpy's output (held leaf-equal to the reference) but
+# are not moved to the device.
+HOST_ONLY_FIELDS = (
+    "bvh_rows", "tri_geom", "bvh8_aabb",
+    "wf_cl_lo", "wf_cl_hi", "wf_sn_lo", "wf_sn_hi", "wf_sn_start", "wf_sn_bounds",
+)
+DEVICE_FIELDS = tuple(f for f in LEAF_FIELDS if f not in HOST_ONLY_FIELDS)
+
+_PackBase = NamedTuple(
+    "_PackBase",
+    [(f, Any) for f in DEVICE_FIELDS]
+    + [("tex_data", Tuple[Any, ...]), ("bvh8_box", Any), ("tri_rows", Any),
+       ("bvh8_depth", int)],
+)
+
+
+class ScenePack(_PackBase):
+    """Scene tables on one device (fields: DEVICE_FIELDS + tex_data + the
+    BVH8 kernel tables; see the module docstring)."""
+
+    def to(self, device) -> "ScenePack":
+        moved = {f: getattr(self, f).to(device) for f in DEVICE_FIELDS}
+        return self._replace(
+            **moved,
+            tex_data=tuple(t.to(device) for t in self.tex_data),
+            bvh8_box=self.bvh8_box.to(device),
+            tri_rows=self.tri_rows.to(device),
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_v0.device
+
+
+def bvh8_tables(bvh8_aabb: np.ndarray, tri_geom: np.ndarray):
+    """The kernel's compact tables from the reference layout:
+    (n8, 8, 6) child boxes and (n_clusters * 128, 12) triangle rows."""
+    box = np.ascontiguousarray(bvh8_aabb[:, :, 0:6], np.float32)
+    nc, _, cl = tri_geom.shape
+    rows = np.zeros((nc * cl, 12), np.float32)
+    rows[:, 0:10] = tri_geom[:, 0:10, :].transpose(0, 2, 1).reshape(nc * cl, 10)
+    return box, rows
+
+
+def bvh8_depth(child8: np.ndarray) -> int:
+    """Internal-node levels on the longest root-to-leaf path of the BVH8
+    (0 for an empty tree).  The traversal stack holds at most
+    8 * depth + 1 entries."""
+    if child8.shape[0] == 0:
+        return 0
+    depth = 0
+    frontier = np.array([0])
+    while frontier.size:
+        depth += 1
+        kids = child8[frontier].ravel()
+        frontier = kids[kids > 0]
+    return depth
+
+
+def from_numpy(leaves: Dict[str, np.ndarray], tex_data: tuple, device) -> ScenePack:
+    """Build the pack on `device` from numpy leaves named as the reference
+    ScenePack's fields (e.g. `np.asarray` of each leaf of a JAX pack, or
+    scene/compiler.compile_numpy's output) and the tex_data tuple.  The
+    HOST_ONLY_FIELDS leaves are read here to derive the kernel tables and
+    are not kept."""
+    device = torch.device(device)
+    tensors = {f: torch.tensor(np.asarray(leaves[f]), device=device)
+               for f in DEVICE_FIELDS}
+    box, rows = bvh8_tables(np.asarray(leaves["bvh8_aabb"]),
+                            np.asarray(leaves["tri_geom"]))
+    return ScenePack(
+        **tensors,
+        tex_data=tuple(torch.tensor(np.asarray(d), device=device) for d in tex_data),
+        bvh8_box=torch.from_numpy(box).to(device),
+        tri_rows=torch.from_numpy(rows).to(device),
+        bvh8_depth=bvh8_depth(np.asarray(leaves["bvh8_child"])),
+    )

@@ -1,0 +1,252 @@
+"""The port's JAX-free scene compiler against the JAX package's compiler:
+every ScenePack leaf equal in shape, dtype and value, SceneStatic equal;
+the BVH8 kernel tables against the reference layout; and a subprocess that
+renders with `jax` blocked.
+
+The scene builders here (mini cornell_dragon, texture scene, triangle soup)
+are shared by the other tests/test_torch_*.py files; this module imports
+the JAX package's jax-based modules only inside tests, so the jax-blocked
+subprocess can import the builders."""
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from rust_raytracer_tpu import models
+from rust_raytracer_tpu.models import builtin
+from rust_raytracer_tpu.scene import graph as g
+from rust_raytracer_tpu.utils import procgen
+from rust_raytracer_torch.ops import bvh8 as tbvh8
+from rust_raytracer_torch.scene import compiler as tcompiler
+from rust_raytracer_torch.scene import pack as tpack
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# ---------------------------------------------------------------- scenes
+
+def mini_dragon_scene():
+    """cornell_dragon cut to size: the Cornell shell, floor and light of
+    models/builtin.py:265-276 around a 960-triangle torus knot."""
+    mat_white, walls = builtin._cornell_shell()
+    mat_light = g.Emissive(g.Constant((15.0, 15.0, 15.0)))
+    mat_gloss = g.Glossy(g.Constant((0.73, 0.73, 0.73)), g.Constant(0.0), 1.5)
+    floor = g.Plane((277.5, 0, 277.5), (277.5, 0, 0), (0, 0, -277.5), mat_white)
+    light = g.Plane((277.5, 554.9, 277.5), (-130, 0, 0), (0, 0, -105), mat_light,
+                    render_backface=True)
+    mesh = procgen.torus_knot_mesh(mat_gloss, rings=40, segments=12)
+    knot = g.Transform(mesh).scale(110).rotate_y(225).translate(267.5, 200.0, 277.5)
+    return g.SceneDef(world=g.Group([floor] + walls + [light, knot]), lights=[light],
+                      config=dict(builtin._CORNELL_CONFIG))
+
+
+def _image(h, w, seed):
+    return np.random.default_rng(seed).uniform(size=(h, w, 3)).astype(np.float32)
+
+
+def texture_scene():
+    """Every texture class of scene/graph.py (Checker, CheckerSolid, Image,
+    Lerp, NoiseSolid(Perlin(seed=7)) with both maps, Channel, UvDebug), a
+    normal map, every surface material, a textured uv mesh, sphere / plane /
+    proxy / sky / sun lights."""
+    c = g.Constant
+    noise = g.NoiseSolid(g.Perlin(seed=7), scale=2.0)
+    turb = g.NoiseSolid(g.Perlin(seed=7), scale=0.5, samples=5, map="turbulence")
+    img = g.Image(_image(16, 24, 1))
+    img_clamp = g.Image(_image(8, 8, 2), clamp=True)
+    nmap = g.Image(_image(8, 12, 3))
+    checker = g.Checker(c((0.2, 0.3, 0.1)), c((0.9, 0.9, 0.9)), 0.1)
+    solid = g.CheckerSolid(c((0.8, 0.1, 0.1)), c((0.1, 0.1, 0.8)), 0.3)
+    lerp = g.Lerp(c((0.02, 0.02, 0.03)), c((0.9, 0.9, 0.9)), noise)
+    chan = g.Channel(g.Lerp(img, solid, turb), 1)
+
+    floor = g.Plane((0, -1, 0), (-6, 0, 0), (0, 0, 6), g.Lambertian(checker))
+    back = g.Plane((0, 1, -4), (4, 0, 0), (0, 2, 0), g.Lambertian(g.UvDebug()))
+    s_img = g.Sphere((-1.5, 0, 0), 0.8, g.Glossy(img, c(0.3), 1.5, normal_map=nmap))
+    s_solid = g.Sphere((0.3, -0.3, 0.6), 0.6, g.Metal(solid, chan))
+    s_marble = g.Sphere((1.6, 0, -0.5), 0.9, g.Lambertian(lerp))
+    s_glass = g.Sphere((0.2, 0.9, 1.2), 0.4, g.Dielectric(1.5))
+    s_iso = g.Sphere((-0.6, 1.4, -1.0), 0.35, g.Isotropic(turb))
+    s_dbg = g.Sphere((1.8, 1.5, 0.8), 0.3, g.NormalDebug(normal_map=nmap))
+    s_light = g.Sphere((0, 3, 0), 0.5, g.Emissive(c((6.0, 5.0, 4.0))))
+    p_light = g.Plane((-2, 2.5, 1), (0.5, 0, 0), (0, 0, 0.5),
+                      g.Emissive(c((3.0, 3.0, 3.0))), render_backface=True)
+    quad = g.Mesh(
+        vertices=np.array([[-1, -0.9, 1.5], [1, -0.9, 1.5], [1, 0.6, 2.0], [-1, 0.6, 2.0]],
+                          np.float64),
+        normals=np.zeros((0, 3)), uvs=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float64),
+        triangles=np.array([[[0, 0, 0], [1, 0, 1], [2, 0, 2]],
+                            [[0, 0, 0], [2, 0, 2], [3, 0, 3]]], np.int32),
+        material=g.Glossy(img_clamp, c(0.2), 1.4, normal_map=nmap),
+        flat_shading=True, hit_back_faces=True,
+    )
+    sky = g.Sky(c((0.3, 0.4, 0.6)))
+    sun = g.Sun((-1.0, 1.0, 0.5), c((8.0, 8.0, 8.0)))
+    proxy = g.ProxySphereLight((2.0, 2.0, 2.0), 0.5)
+    world = g.Group([floor, back, s_img, s_solid, s_marble, s_glass, s_iso, s_dbg,
+                     s_light, p_light, quad, sky, sun])
+    return g.SceneDef(
+        world=world, lights=[s_light, p_light, proxy, sky, sun],
+        config=dict(output_width=24, aspect_ratio=1.5, focal_length=35.0,
+                    camera_pos=(0.0, 1.0, 7.0), camera_target=(0.0, 0.0, 0.0),
+                    background=(0.05, 0.05, 0.1)),
+    )
+
+
+def soup_scene():
+    """The random triangle soup of tests/test_pallas.py."""
+    rng = np.random.default_rng(11)
+    n_tris = 700
+    centers = rng.uniform(-1, 1, (n_tris, 3))
+    offsets = rng.normal(0, 0.12, (n_tris, 3, 3))
+    verts = (centers[:, None, :] + offsets).reshape(-1, 3)
+    tris = np.arange(3 * n_tris).reshape(n_tris, 3)
+    tri_idx = np.stack([tris, tris, np.full_like(tris, -1)], axis=-1)
+    mesh = g.Mesh(
+        vertices=verts, normals=np.zeros((0, 3)), uvs=np.zeros((0, 2)),
+        triangles=tri_idx, material=g.Lambertian(g.Constant((0.5, 0.5, 0.5))),
+    )
+    return g.SceneDef(world=g.Group([mesh]), lights=[])
+
+
+SCENES = {
+    "test": lambda: models.build("test"),
+    "cornell": lambda: models.build("cornell"),
+    "cornell_smoke": lambda: models.build("cornell_smoke"),
+    "tonemap_test": lambda: models.build("tonemap_test"),
+    "soup": soup_scene,
+    "texture": texture_scene,
+    "mini_dragon": mini_dragon_scene,
+}
+
+
+def jax_leaves(pack):
+    """numpy leaves of a JAX ScenePack (name -> array) and its tex_data."""
+    leaves = {f.name: np.asarray(getattr(pack, f.name))
+              for f in dataclasses.fields(pack) if f.name != "tex_data"}
+    return leaves, tuple(np.asarray(d) for d in pack.tex_data)
+
+
+def port_pack_from_jax(pack, device="cpu"):
+    """Feed a JAX-compiled scene to the port (as numpy, never as jax)."""
+    leaves, tex_data = jax_leaves(pack)
+    return tpack.from_numpy(leaves, tex_data, device)
+
+
+def port_static(static):
+    """The JAX SceneStatic with the port's TexNode class."""
+    from rust_raytracer_torch.ops import texture as ttex
+
+    return tcompiler.SceneStatic(
+        tex_program=tuple(ttex.TexNode(**dataclasses.asdict(n)) for n in static.tex_program),
+        light_list=static.light_list)
+
+
+# ---------------------------------------------------------------- tests
+
+def test_pack_fields_match_reference():
+    from rust_raytracer_tpu.scene import pack as jpack
+
+    want = {f.name for f in dataclasses.fields(jpack.ScenePack)}
+    assert set(tpack.LEAF_FIELDS) | {"tex_data"} == want
+    assert len(tpack.LEAF_FIELDS) == len(want) - 1
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_compile_scene_leaves_equal_jax(name):
+    from rust_raytracer_tpu.scene import compiler as jcompiler
+
+    scene = SCENES[name]()
+    jp, js = jcompiler.compile_scene(scene)
+    want, want_tex = jax_leaves(jp)
+    got, got_tex, static = tcompiler.compile_numpy(scene)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert len(got_tex) == len(want_tex)
+    for a, b in zip(got_tex, want_tex):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    assert static.light_list == js.light_list
+    assert ([dataclasses.astuple(n) for n in static.tex_program]
+            == [dataclasses.astuple(n) for n in js.tex_program])
+
+
+@pytest.mark.parametrize("name", ["mini_dragon", "texture"])
+def test_from_numpy_round_trip(name):
+    from rust_raytracer_tpu.scene import compiler as jcompiler
+
+    jp, _ = jcompiler.compile_scene(SCENES[name]())
+    leaves, tex_data = jax_leaves(jp)
+    pack = tpack.from_numpy(leaves, tex_data, "cpu").to("cpu")
+    assert pack.device == torch.device("cpu")
+    assert set(tpack.DEVICE_FIELDS) | set(tpack.HOST_ONLY_FIELDS) == set(tpack.LEAF_FIELDS)
+    assert not set(tpack.HOST_ONLY_FIELDS) & set(pack._fields)
+    for k in tpack.DEVICE_FIELDS:
+        t = getattr(pack, k)
+        assert t.device.type == "cpu"
+        np.testing.assert_array_equal(t.numpy(), leaves[k], err_msg=k)
+    for t, d in zip(pack.tex_data, tex_data):
+        np.testing.assert_array_equal(t.numpy(), d)
+
+
+@pytest.mark.parametrize("name", ["mini_dragon", "soup"])
+def test_bvh8_kernel_tables(name):
+    leaves, _, _ = tcompiler.compile_numpy(SCENES[name]())
+    pack = tpack.from_numpy(leaves, (), "cpu")
+    aabb8, child8 = leaves["bvh8_aabb"], leaves["bvh8_child"]
+    np.testing.assert_array_equal(pack.bvh8_box.numpy(), aabb8[:, :, 0:6])
+    np.testing.assert_array_equal(child8, aabb8[:, :, 6].astype(np.int32))
+    geom = leaves["tri_geom"]
+    rows = pack.tri_rows.numpy().reshape(geom.shape[0], 128, 12)
+    np.testing.assert_array_equal(rows[:, :, 0:10], geom[:, 0:10, :].transpose(0, 2, 1))
+    np.testing.assert_array_equal(rows[:, :, 10:], 0.0)
+
+    def depth(node):
+        kids = [c for c in child8[node] if c > 0]
+        return 1 + max((depth(c) for c in kids), default=0)
+
+    assert pack.bvh8_depth == depth(0)
+    assert 8 * pack.bvh8_depth + 1 <= tbvh8.STACK
+
+
+def test_port_runs_without_jax():
+    """Import every module of rust_raytracer_torch with `jax` blocked, then
+    compile the mini scene and render a 16x16 frame on the CPU."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.path.insert(0, {REPO!r})
+        sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})
+        import numpy as np, torch
+        torch.set_num_threads(2)
+        import rust_raytracer_torch
+        for m in pkgutil.walk_packages(rust_raytracer_torch.__path__, "rust_raytracer_torch."):
+            importlib.import_module(m.name)
+        from rust_raytracer_tpu.scene import graph
+        from rust_raytracer_tpu.utils import config as cfg
+        from rust_raytracer_torch.render.camera import camera_from_config
+        from rust_raytracer_torch.render.renderer import Renderer
+        from test_torch_scene import mini_dragon_scene
+        scene = mini_dragon_scene()
+        sc = cfg.merge_scene_config(scene.config, {{"output_width": 16}})
+        cam = camera_from_config(sc, cfg.RenderConfig(samples_per_pixel=1, max_depth=4))
+        img = Renderer(scene, cam, batch_size=256, device="cpu").render().hdr()
+        assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0
+        assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items()
+                       if v is not None)
+        print("ok", img.mean())
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
