@@ -4,8 +4,9 @@ PyTorch version.
 `intersect_triangles_bvh8` replaces the reference's Pallas kernel
 (rust_raytracer_tpu/ops/pallas_bvh8.py).  On a CUDA tensor it launches the
 hand-written kernel in csrc/bvh8_traverse.cu (built with nvcc at first use
-into build/rrt_torch/); on a CPU tensor it runs `traverse_plain`.  There is
-no fallback between the two: a CUDA input that cannot launch raises.
+into build/rrt_torch/ by ops/_cuda.py); on a CPU tensor it runs
+`traverse_plain`.  There is no fallback between the two: a CUDA input that
+cannot launch raises.
 
 Contract (the reference kernel's): rays org/dirn (N, 3) f32 and t_max (N,)
 f32 in; (t, slot) out, where slot = cluster * 128 + lane indexes the padded
@@ -17,15 +18,10 @@ ops/intersect.py (kernel="jnp"), with the same contract.
 """
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
-
 import torch
+
+from . import _cuda
+from ._cuda import build_library  # noqa: F401 (re-exported: chip_smoke.py builds through it)
 
 CLUSTER = 128
 STACK = 160          # must match csrc/bvh8_traverse.cu
@@ -37,80 +33,8 @@ T_MIN_STATIC = 1e-3  # reference: camera.rs:294 interval lower bound
 launches = 0
 plain_calls = 0
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rrt_torch"
-LIB_PATH = _BUILD_DIR / "librrt_kernels.so"
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _sources():
-    return sorted(_CSRC.glob("*.cu"))
-
-
-def find_nvcc() -> str:
-    """nvcc from PATH, else $CUDA_HOME/bin (default /usr/local/cuda)."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    raise RuntimeError(
-        "nvcc not found (searched PATH and $CUDA_HOME/bin): the BVH8 "
-        "traversal kernel is built from rust_raytracer_torch/csrc at first "
-        "use and needs the CUDA toolkit"
-    )
-
-
-def nvcc_command(nvcc: str, out: Path):
-    """The build command: sm_90a, IEEE division, no FMA contraction."""
-    return [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(out), *[str(s) for s in _sources()],
-    ]
-
-
-def build_library() -> Path:
-    """Compile csrc/*.cu into LIB_PATH if it is missing or older than a
-    source.  Raises with nvcc's stderr on failure."""
-    srcs = _sources()
-    if LIB_PATH.exists() and all(
-        s.stat().st_mtime <= LIB_PATH.stat().st_mtime for s in srcs
-    ):
-        return LIB_PATH
-    nvcc = find_nvcc()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(nvcc, Path(tmp)),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return LIB_PATH
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            fn = lib.rrt_bvh8_traverse
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
-            _lib = lib
-        return _lib
-
-
-def _check_rays(org, dirn, t_max):
+def check_rays(org, dirn, t_max):
     n = org.shape[0]
     for name, a, shape in (("org", org, (n, 3)), ("dirn", dirn, (n, 3)),
                            ("t_max", t_max, (n,))):
@@ -141,15 +65,8 @@ def _launch(pack, org, dirn, t_max):
     slot = torch.empty((n,), dtype=torch.int32, device=org.device)
     if n == 0:
         return t_out, slot
-    lib = _load()
-    stream = torch.cuda.current_stream(org.device).cuda_stream
-    err = lib.rrt_bvh8_traverse(
-        *(a.data_ptr() for a in tables),
-        org.data_ptr(), dirn.data_ptr(), t_max.data_ptr(),
-        t_out.data_ptr(), slot.data_ptr(), n, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"bvh8 traversal kernel launch failed: CUDA error {err}")
+    _cuda.launch("rrt_bvh8_traverse", (*tables, org, dirn, t_max, t_out, slot),
+                 (n,), org.device)
     launches += 1
     return t_out, slot
 
@@ -159,7 +76,7 @@ def intersect_triangles_bvh8(pack, org, dirn, t_min, t_max):
     CUDA tensors launch the kernel; CPU tensors run the plain version."""
     global plain_calls
     del t_min  # static T_MIN_STATIC, as in the reference kernel
-    _check_rays(org, dirn, t_max)
+    check_rays(org, dirn, t_max)
     n = org.shape[0]
     if pack.bvh8_child.shape[0] == 0 or pack.tri_rows.shape[0] == 0:
         return t_max, torch.full((n,), -1, dtype=torch.int32, device=org.device)
@@ -171,7 +88,7 @@ def intersect_triangles_bvh8(pack, org, dirn, t_min, t_max):
     return traverse_plain(pack, org, dirn, t_max)
 
 
-def _mt_rows(o, d, rows, best):
+def mt_rows(o, d, rows, best):
     """Möller–Trumbore of rays (L, 1) against triangle rows (L, K, 12) in
     the reference kernel's operation order; returns (L, K) t with +inf
     where a triangle is rejected (including t >= best)."""
@@ -254,7 +171,7 @@ def traverse_plain(pack, org, dirn, t_max):
             sel = leaf_sel[s:s + _LEAF_BLOCK]
             ln = lanes[sel]
             start = ls[sel]
-            tt = _mt_rows(org[ln], dirn[ln], rows[start // CLUSTER], best_t[ln])
+            tt = mt_rows(org[ln], dirn[ln], rows[start // CLUSTER], best_t[ln])
             tmin = tt.min(dim=1).values
             first = torch.where(tt == tmin[:, None], k_idx, CLUSTER).min(dim=1).values
             better = tmin < best_t[ln]

@@ -1,8 +1,9 @@
 """Ray-scene intersection (port of rust_raytracer_tpu/ops/intersect.py).
 
 Spheres and planes are tested one primitive at a time over all rays with a
-running closest hit; triangles go through the BVH8 traversal (ops/bvh8.py:
-the CUDA kernel on the card, its plain version on the CPU); sun and sky are
+running closest hit; triangles go through the chosen traversal, the BVH8
+walk (ops/bvh8.py) or the wavefront pipeline (ops/wavefront.py): CUDA
+kernels on the card, their plain versions on the CPU; sun and sky are
 analytic and evaluated after surfaces.  Hits carry (t, kind, prim);
 `hit_attributes` gathers the winning primitive and computes the hit record.
 
@@ -17,6 +18,7 @@ import torch
 from ..core import math as vmath
 from ..scene import pack as sp
 from . import bvh8
+from . import wavefront
 
 # t used for sun hits: beats the sky (inf), loses to any finite surface.
 T_SUN = 3.0e38
@@ -24,13 +26,11 @@ DET_EPS = 1e-12
 SUN_THETA_MAX = 1e-3  # reference: sun.rs:14
 
 # Triangle traversal choices, checked once by Renderer: "auto" and "bvh8"
-# are the BVH8 walk, the only one ported; the reference's other traversals
-# are not ported yet (ROADMAP K2, K3).
-KERNELS = ("auto", "bvh8")
-_UNPORTED = {
-    "wavefront": "ROADMAP Queue 2, K2a-K2d (the wavefront pipeline)",
-    "threaded": "ROADMAP Queue 2, K3 (the threaded-BVH walk)",
-}
+# are the exact BVH8 walk, "wavefront" the cull -> compact -> MT pipeline
+# (approximate when a packet overflows a cap; the overflow is counted).
+# The reference's threaded walk is not ported yet (ROADMAP K3).
+KERNELS = ("auto", "bvh8", "wavefront")
+_UNPORTED = {"threaded": "ROADMAP Queue 2, K3 (the threaded-BVH walk)"}
 
 
 def check_kernel(kernel: str) -> None:
@@ -159,16 +159,38 @@ def intersect_planes(pack, org, dirn, t_min, t_max):
     return best_t, best_i
 
 
-def intersect_triangles(pack, org, dirn, t_min, t_max):
+def intersect_triangles(pack, org, dirn, t_min, t_max, kernel: str = "auto",
+                        return_stats: bool = False):
     """Closest triangle hit: (t, slot) with t == t_max where nothing was
-    hit (see ops/bvh8.py for the contract)."""
+    hit (see ops/bvh8.py for the contract), through the BVH8 walk or, for
+    kernel="wavefront", the wavefront pipeline.  With return_stats=True the
+    return is (t, slot, stats), stats["wf_overflow"] the number of packets
+    that overflowed a wavefront cap (a 0-d int64 tensor; 0 for the exact
+    walk).  The reference's VMEM-fit check for the wavefront pipeline
+    (_wavefront_vmem_ok) has no counterpart: the card holds the tables in
+    device memory."""
+    n = org.shape[0]
+    ov = torch.zeros((), dtype=torch.int64, device=org.device)
     if pack.tri_v0.shape[0] == 0 or pack.bvh_min.shape[0] == 0:
-        return t_max, _full(org.shape[0], -1, torch.int32, org.device)
-    return bvh8.intersect_triangles_bvh8(pack, org, dirn, t_min, t_max)
+        t, i = t_max, _full(n, -1, torch.int32, org.device)
+    elif kernel == "wavefront":
+        if pack.wf_cl_lo.shape[0] == 0:
+            raise ValueError(
+                "kernel='wavefront' requested but the scene has no wavefront "
+                "cluster tables; use kernel='auto'")
+        t, i, ov = wavefront.intersect_triangles_wavefront(
+            pack, org, dirn, t_min, t_max, return_overflow=True)
+    else:
+        t, i = bvh8.intersect_triangles_bvh8(pack, org, dirn, t_min, t_max)
+    if return_stats:
+        return t, i, {"wf_overflow": ov}
+    return t, i
 
 
-def intersect(pack, org, dirn, t_min, alive=None):
-    """Closest hit across all primitive classes -> Hit.
+def intersect(pack, org, dirn, t_min, alive=None, kernel: str = "auto",
+              return_stats: bool = False):
+    """Closest hit across all primitive classes -> Hit, or (Hit, stats)
+    with return_stats=True (stats as intersect_triangles returns them).
 
     Ordering follows the reference's list scan with shrinking intervals:
     finite surface hits first, then the sun (t = T_SUN) within its cone,
@@ -189,7 +211,8 @@ def intersect(pack, org, dirn, t_min, alive=None):
     tri_tmax = torch.minimum(t_sph, t_pln)
     if alive is not None:
         tri_tmax = torch.where(alive, tri_tmax, torch.zeros_like(tri_tmax))
-    t_tri, i_tri = intersect_triangles(pack, org, dirn, t_min, tri_tmax)
+    t_tri, i_tri, stats = intersect_triangles(pack, org, dirn, t_min, tri_tmax,
+                                              kernel=kernel, return_stats=True)
     t_tri = torch.where(i_tri >= 0, t_tri, inf)
 
     t_best = torch.minimum(torch.minimum(t_sph, t_pln), t_tri)
@@ -222,7 +245,10 @@ def intersect(pack, org, dirn, t_min, alive=None):
         prim = torch.where(miss, n_sky - 1, prim).to(torch.int32)
         t_best = torch.where(miss, float("inf"), t_best)
 
-    return Hit(t=t_best, kind=kind, prim=prim)
+    hit = Hit(t=t_best, kind=kind, prim=prim)
+    if return_stats:
+        return hit, stats
+    return hit
 
 
 def hit_attributes(pack, org, dirn, hit: Hit) -> HitAttributes:

@@ -55,14 +55,18 @@ def _compaction_key(org, dirn, alive, dir_bits: int = 3):
     return key
 
 
-def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive):
+def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
+                 kernel: str = "auto"):
     """One path vertex: closest hit, texture program, NEE-mixture shading,
     miss -> background.
 
     Returns (emission, weight, new_dir, ended, pos, stats) as the
-    reference; stats["wf_overflow"] is 0 (the BVH8 traversal is exact).
+    reference; stats["wf_overflow"] is the number of packets that
+    overflowed a wavefront cap this vertex (a 0-d int64 tensor on the
+    device; 0 for the exact BVH8 walk).
     """
-    hit = isect.intersect(pack, org, dirn, T_MIN, alive=alive)
+    hit, stats = isect.intersect(pack, org, dirn, T_MIN, alive=alive, kernel=kernel,
+                                 return_stats=True)
     attr = isect.hit_attributes(pack, org, dirn, hit)
     tex_values = tex.eval_program(static.tex_program, pack.tex_data, attr.uv,
                                   attr.pos, tex_const=pack.tex_const)
@@ -71,4 +75,4 @@ def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive):
     miss = ~attr.valid
     emission = torch.where(miss[:, None], pack.background[None, :], res.emission)
     ended = res.terminate | miss
-    return emission, res.weight, res.new_dir, ended, attr.pos, {"wf_overflow": 0}
+    return emission, res.weight, res.new_dir, ended, attr.pos, stats

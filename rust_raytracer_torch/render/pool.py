@@ -11,8 +11,10 @@ the reference (index_add_ on the card sums in no fixed order).
 Step order, as the reference: shade the vertex, compaction-sort the lanes
 (dead last) BEFORE retiring and refilling, add retirees into the image,
 refill dead lanes pixel-major from the job counter.  The step is plain
-PyTorch; the triangle traversal inside it is the BVH8 CUDA kernel on the
-card.  Multi-device sharding (`mesh`) is not ported yet.
+PyTorch; the triangle traversal inside it is the chosen traversal's CUDA
+kernels on the card (`kernel`: the BVH8 walk or the wavefront pipeline,
+whose cap-overflow count the state sums on the device).  Multi-device
+sharding (`mesh`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ class PoolState(NamedTuple):
     active: torch.Tensor      # (L,) bool
     accum: torch.Tensor       # (n_pixels, 3) f32 image radiance sums
     next_flat: torch.Tensor   # () int64 jobs issued so far
-    overflow: torch.Tensor    # () int64 traversal-overflow count (0: exact kernel)
+    overflow: torch.Tensor    # () int64 wavefront cap-overflow packets (0: exact walk)
 
 
 def init_state(n_lanes: int, n_pixels: int, device) -> PoolState:
@@ -56,10 +58,12 @@ def init_state(n_lanes: int, n_pixels: int, device) -> PoolState:
     )
 
 
-def make_step(pack, static, camera, total: int, spp: int, seed):
+def make_step(pack, static, camera, total: int, spp: int, seed,
+              kernel: str = "auto"):
     """Build the pool step `step(pack, state) -> state`.  `total` =
     n_pixels * spp lane-jobs; flat job ids are pixel-major (pixel =
-    flat // spp) so consecutive refills share pixels."""
+    flat // spp) so consecutive refills share pixels.  `kernel` is the
+    triangle traversal (ops/intersect.py KERNELS)."""
     w = camera.image_width
     max_depth = camera.max_depth
     light_bias = camera.light_bias
@@ -68,7 +72,7 @@ def make_step(pack, static, camera, total: int, spp: int, seed):
     def step(pack, s: PoolState) -> PoolState:
         ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=s.bounce, seed=seed)
         emission, weight, new_dir, ended, pos, stats = integrator.shade_vertex(
-            pack, static, s.org, s.dirn, ctx, light_bias, s.active)
+            pack, static, s.org, s.dirn, ctx, light_bias, s.active, kernel=kernel)
         overflow = s.overflow + stats["wf_overflow"]
 
         act = s.active[:, None]
@@ -134,11 +138,14 @@ STEPS_PER_POLL = 10
 
 @dataclasses.dataclass
 class PoolMetrics:
-    """Counters of one pool render: steps run and the lane occupancy
-    (active / lanes) read at each poll."""
+    """Counters of one pool render: steps run, the lane occupancy (active
+    / lanes) read at each poll, and the packets that overflowed a
+    wavefront cap out of all 8-lane packets traced (the reference's
+    wf_overflow_packets / wf_total_packets)."""
     steps: int = 0
     occupancy: List[float] = dataclasses.field(default_factory=list)
     overflow: int = 0
+    total_packets: int = 0
 
     @property
     def mean_occupancy(self) -> float:
@@ -146,16 +153,17 @@ class PoolMetrics:
 
 
 def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
-                device, seed=0, metrics: PoolMetrics = None):
+                device, seed=0, metrics: PoolMetrics = None, kernel: str = "auto"):
     """Render n_pixels * spp samples through a pool of n_lanes on `device`.
 
     Returns the (n_pixels, 3) radiance sum (divide by spp for the mean).
-    `metrics`, if given, records steps and per-poll occupancy.  The host
-    reads two scalars every STEPS_PER_POLL steps to decide completion.
+    `metrics`, if given, records steps, per-poll occupancy and overflow.
+    The host reads two scalars every STEPS_PER_POLL steps to decide
+    completion.
     """
     total = n_pixels * spp
     state = init_state(n_lanes, n_pixels, device)
-    step = make_step(pack, static, camera, total, spp, seed)
+    step = make_step(pack, static, camera, total, spp, seed, kernel=kernel)
     # every lane-job takes <= max_depth steps
     max_steps = (total * camera.max_depth) // n_lanes + 2 * camera.max_depth
 
@@ -170,6 +178,7 @@ def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
             metrics.steps = done_steps
             metrics.occupancy.append(n_active / n_lanes)
             metrics.overflow = int(state.overflow)
+            metrics.total_packets = (n_lanes // 8) * done_steps
         if issued >= total and n_active == 0:
             break
     return state.accum

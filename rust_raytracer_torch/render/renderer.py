@@ -34,9 +34,11 @@ class Renderer:
         *,
         device,
     ):
-        """kernel: "auto" or "bvh8" — the BVH8 traversal (the CUDA kernel
-        for a CUDA device, its plain version for the CPU).  "wavefront" and
-        "threaded" are not ported yet and raise NotImplementedError."""
+        """kernel: "auto" or "bvh8" — the exact BVH8 traversal; "wavefront"
+        — the cull -> compact -> MT pipeline (approximate when a packet
+        overflows a cap; PoolMetrics.overflow counts them).  CUDA kernels
+        for a CUDA device, their plain versions for the CPU.  "threaded" is
+        not ported yet and raises NotImplementedError."""
         isect.check_kernel(kernel)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -70,7 +72,7 @@ class Renderer:
 
         accum = poolmod.render_pool(
             self.pack, self.static, camera, n_pixels, total_spp, n_lanes,
-            self.device, seed=self.seed, metrics=metrics,
+            self.device, seed=self.seed, metrics=metrics, kernel=self.kernel,
         )
         film = filmmod.Film(w, h)
         film.add_samples(accum.reshape(h, w, 3), total_spp)

@@ -2,10 +2,11 @@
 
 Port of rust_raytracer_tpu/scene/pack.py: the same fields (see that module
 for the meaning of each table), as a NamedTuple of torch tensors, except the
-tables only other traversals read (HOST_ONLY_FIELDS: the threaded-BVH rows,
-the wavefront supernode tables, and `tri_geom` / `bvh8_aabb`, whose content
-the kernel reads repacked), plus the tables the CUDA BVH8 traversal kernel
-reads (ops/bvh8.py), derived once when the pack is built:
+tables no port traversal reads (HOST_ONLY_FIELDS: the threaded-BVH rows,
+and `tri_geom` / `bvh8_aabb`, whose content the kernels read repacked), plus
+the tables the CUDA traversal kernels read (ops/bvh8.py; the wavefront MT
+kernel of ops/wavefront.py reads `tri_rows`), derived once when the pack is
+built:
 
   bvh8_box   (n8, 8, 6) f32   child AABBs, lanes 0-5 of the reference's
                               (n8, 8, 128) `bvh8_aabb`
@@ -16,7 +17,9 @@ reads (ops/bvh8.py), derived once when the pack is built:
   bvh8_depth int              levels of internal BVH8 nodes on the longest
                               root-to-leaf path (bounds the kernel's stack)
 
-Material, primitive, light and volume ids are the reference's.
+The wavefront pipeline reads the `wf_*` cluster and supernode tables as the
+reference has them.  Material, primitive, light and volume ids are the
+reference's.
 """
 from __future__ import annotations
 
@@ -76,14 +79,11 @@ LEAF_FIELDS = (
     "tex_const", "background",
 )
 
-# Reference leaves the port reads nowhere: the tables of the traversals not
-# ported yet (ROADMAP K2, K3) and the reference layouts of the kernel tables.
-# They stay in compile_numpy's output (held leaf-equal to the reference) but
-# are not moved to the device.
-HOST_ONLY_FIELDS = (
-    "bvh_rows", "tri_geom", "bvh8_aabb",
-    "wf_cl_lo", "wf_cl_hi", "wf_sn_lo", "wf_sn_hi", "wf_sn_start", "wf_sn_bounds",
-)
+# Reference leaves the port reads nowhere: the threaded walk's rows (K3 is
+# not ported yet) and the reference layouts of the kernel tables.  They stay
+# in compile_numpy's output (held leaf-equal to the reference) but are not
+# moved to the device.
+HOST_ONLY_FIELDS = ("bvh_rows", "tri_geom", "bvh8_aabb")
 DEVICE_FIELDS = tuple(f for f in LEAF_FIELDS if f not in HOST_ONLY_FIELDS)
 
 _PackBase = NamedTuple(

@@ -167,8 +167,8 @@ def test_intersect_and_hit_attributes_match(name):
 
 
 def test_unported_kernels_raise():
-    with pytest.raises(NotImplementedError, match="K2a"):
-        tisect.check_kernel("wavefront")
+    for kernel in ("auto", "bvh8", "wavefront"):
+        assert tisect.check_kernel(kernel) is None  # ported: accepted
     with pytest.raises(NotImplementedError, match="K3"):
         tisect.check_kernel("threaded")
     with pytest.raises(ValueError):
@@ -186,12 +186,18 @@ def test_renderer_cuda_without_cuda_raises():
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    from rust_raytracer_torch.ops import _cuda
+
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
-    monkeypatch.setattr(tbvh8, "LIB_PATH", tmp_path / "librrt_kernels.so")
+    monkeypatch.setattr(_cuda, "LIB_PATH", tmp_path / "librrt_kernels.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tbvh8.build_library()
-    cmd = tbvh8.nvcc_command("nvcc", tmp_path / "out.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-fmad=false" in cmd and "--use_fast_math" not in cmd
-    assert any(s.endswith("csrc/bvh8_traverse.cu") for s in cmd)
+    built = set()
+    for src in _cuda.sources():
+        cmd = _cuda.nvcc_command("nvcc", src, tmp_path / f"{src.stem}.o")
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-fmad=false" in cmd and "--use_fast_math" not in cmd
+        assert cmd[-1] == str(src) and "-c" in cmd
+        built.add(src.name)
+    assert {"bvh8_traverse.cu", "wf_cull.cu", "wf_compact.cu", "wf_mt.cu"} <= built
