@@ -16,17 +16,35 @@ Then the same for the wavefront traversal (`kernel="wavefront"`, three
 kernels: cull, compact, Möller–Trumbore): each kernel against its plain
 version, and the pipeline against the BVH8 kernel, on the traversal inputs
 that a wavefront render passes at its first, a mid-render and a drain
-step, and on primary rays over the whole image; the dense single-level pipeline on 2^15 lanes; each kernel's time
-against its plain version's; the wavefront main-path render, its launches,
-overflow and image against the BVH8 render's; and its step split.
+step, and on primary rays over the whole image; the dense single-level
+pipeline on 2^15 lanes; each kernel's time against its plain version's;
+the wavefront main-path render, its launches, overflow and image against
+the BVH8 render's; and its step split.
+
+Then the threaded-BVH walk (`kernel="threaded"`, K3): the kernel against
+its plain version and against the BVH8 kernel on 2^18 sorted primary,
+bounce and capped/dead rays, its time against both with the counts its
+bound needs; the batch render (`render(mode="batch")`) of cornell_dragon at
+full width through it, its launches and its image against the BVH8 pool
+image; the fwd+bwd step (the differentiable trace at 2^15 lanes, depth 20,
+gradients of every float scene table) with remat "none" and "hits", its
+rate and peak memory, its gradients against the BVH8 walk's; and a small
+gradient on the card against the same on the CPU.
+
+Each kernel's bound (the least time the card could take for the work) is
+the larger of its operations over 67 TFLOP/s (f32, outside the tensor
+cores) and its bytes over 3.35 TB/s (NVIDIA H100 SXM data sheet), from
+counts of what these rays need: a slab test is 25 operations, a
+Möller–Trumbore test 56; rays are read and results written once, and each
+distinct node and cluster touched is read once.
 
 Any failed check raises, so the exit code is non-zero.  The last two lines
 of standard output are a JSON line describing each kernel and the final
 JSON result line.
 
-Requires CUDA (exits non-zero without printing a result otherwise).  The
-JAX reference package's jax-based modules are never imported: `jax` is
-blocked at the top of this script.
+Requires CUDA (exits non-zero without printing a result otherwise).  Nothing
+of JAX or of the JAX reference package is imported: `jax` is blocked at the
+top of this script and `rust_raytracer_tpu` is checked at the end.
 """
 import json
 import os
@@ -41,7 +59,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 W, SPP, DEPTH, LANES = 1200, 1, 20, 1 << 18
+GRAD_LANES = 1 << 15
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+# bounds: NVIDIA H100 SXM, f32 outside the tensor cores and HBM3
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+SLAB_OPS, MT_OPS = 25, 56      # operations of one slab test, one Möller–Trumbore test
+RAY_BYTES, HIT_BYTES = 28, 8   # org, dirn, t_max in; t, slot out
+CLUSTER_BYTES = 128 * 48       # one cluster's triangle rows
 
 
 def log(*a):
@@ -217,6 +242,32 @@ def step_split(renderer, camera, card, names, warm=10, steps=5):
             f"x{e.count // steps:<4d} {e.key[:90]}")
 
 
+def device_split(tag, fn, card, names):
+    """Run `fn` once under the profiler: its device busy time, and the
+    device time and launches of each traversal kernel (matched by its
+    `__global__` name) over the whole call.  Returns {name: (ms, launches)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    own = {nm: (sum(e.self_device_time_total for e in kernels if nm in e.key) / 1e3,
+                sum(e.count for e in kernels if nm in e.key)) for nm in names}
+    if any(n == 0 for _, n in own.values()):
+        raise AssertionError(f"device split {tag}: a traversal kernel was not seen: {own}")
+    log(f"device split, {tag}: wall {wall_ms:.1f} ms (profiled), device busy {dev_ms:.1f} ms, "
+        f"{sum(e.count for e in kernels)} kernels; " + "; ".join(
+            f"{nm} {ms:.1f} ms in {n} launches ({ms / max(dev_ms, 1e-9):.1%} of device time)"
+            for nm, (ms, n) in own.items()) + f" ({card})")
+    return own
+
+
 def check_image(film, camera):
     """The film's HDR image: shape, finite, not black, and the light's
     pixels the brightest (median of the light region >= the image's 99th
@@ -377,7 +428,12 @@ def dense_parity(pack, org, dirn, t_max):
 
 def wf_times(pack, org, dirn, t_max, card):
     """Each wavefront kernel and its plain version on the same inputs
-    (median of 5, host clock around a synchronized call)."""
+    (median of 5, host clock around a synchronized call), and each kernel's
+    bound from what these inputs need: A slab-tests 8 rays against the 128
+    cluster boxes of each live supernode slot; L2 reads each live slot's
+    kept ids; MT tests 8 rays against the 128 triangles of each listed
+    cluster.  Returns ({name: (kernel_ms, plain_ms)}, {name: (bound_ms,
+    bound_by)})."""
     from rust_raytracer_torch.ops import wavefront as wf
 
     S = pack.wf_sn_lo.shape[0]
@@ -390,6 +446,21 @@ def wf_times(pack, org, dirn, t_max, card):
     keys, counts = wf.cull(*a_in)
     cl, real = wf.compact(keys, counts, n1, k)
     mt_in = (cl, torch.clamp(real, max=k), org, dirn, tm, pack.tri_rows)
+    n_pk = org.shape[0] // wf.R
+    live = torch.arange(k1, device=org.device)[None, :] < n1[:, None]
+    pairs = int(mt_in[1].sum())
+    listed = mt_in[0][torch.arange(k, device=org.device)[None, :] < mt_in[1][:, None]]
+    rays = n_pk * wf.R * RAY_BYTES
+    bounds = {
+        "wf_cull": bound(int(n1.sum()) * 128 * wf.R * SLAB_OPS,
+                         rays + n_pk * (k1 + 1) * 4 + int(sn_slot[live].unique().numel()) * 6 * 128 * 4
+                         + S * 4 + n_pk * k1 * (wf.KC + 1) * 4),
+        "wf_compact": bound(0, int(torch.clamp(counts, max=wf.KC)[live].sum()) * 4
+                            + n_pk * (k1 + 1) * 4 + n_pk * (k + 1) * 4),
+        "wf_mt": bound(pairs * wf.R * 128 * MT_OPS,
+                       pairs * 4 + n_pk * 4 + rays + int(listed.unique().numel()) * CLUSTER_BYTES
+                       + n_pk * wf.R * HIT_BYTES),
+    }
     times = {
         "l1": (time_ms(lambda: wf.nearest_boxes(pack.wf_sn_lo, pack.wf_sn_hi, org, dirn,
                                                 t_max, k1)), None),
@@ -402,7 +473,12 @@ def wf_times(pack, org, dirn, t_max, card):
         f"{times['l1'][0]:.3f} ms; " + "; ".join(
             f"{nm} kernel {times[nm][0]:.3f} ms, plain {times[nm][1]:.3f} ms"
             for nm in ("wf_cull", "wf_compact", "wf_mt")) + f" (median of 5; {card})")
-    return times
+    log(f"wavefront counts: {n_pk} packets, live supernode slots {int(n1.sum())}, candidate "
+        f"pairs {pairs}, distinct listed clusters {int(listed.unique().numel())}; bounds: "
+        + "; ".join(f"{nm} {bounds[nm][0]:.4f} ms by {bounds[nm][1]} "
+                    f"({bounds[nm][0] / times[nm][0]:.2%} of the kernel's time)"
+                    for nm in ("wf_cull", "wf_compact", "wf_mt")))
+    return times, bounds
 
 
 def image_agreement(a, b):
@@ -413,24 +489,282 @@ def image_agreement(a, b):
     return 1.0 - float(off.mean()), float(np.mean(np.abs(a - b))) / scale
 
 
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of operations over the card's f32
+    rate and bytes over its memory rate."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bvh8_walk(pack, org, dirn, t_max):
+    """The BVH8 kernel's walk in torch ops (csrc/bvh8_traverse.cu: a stack
+    per ray, children pushed 7 -> 0, near clamped at T_MIN), to count what
+    it does: returns (t, slot, counts) with internal-node visits (8 slab
+    tests each), leaf visits, and distinct internal nodes and clusters.
+    Its (t, slot) must equal the kernel's, slots included."""
+    from rust_raytracer_torch.ops import bvh8, threaded
+
+    n, dev = org.shape[0], org.device
+    inv = 1.0 / dirn
+    best = torch.clamp(t_max, max=3.4e38)
+    slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    stack = torch.zeros((n, bvh8.STACK), dtype=torch.int64, device=dev)
+    sp = torch.ones((n,), dtype=torch.int64, device=dev)
+    box, child = pack.bvh8_box, pack.bvh8_child.to(torch.int64)
+    rows = pack.tri_rows.view(-1, 128, 12)
+    k_idx = torch.arange(128, device=dev)
+    seen8 = torch.zeros((box.shape[0],), dtype=torch.bool, device=dev)
+    seen_cl = torch.zeros((rows.shape[0],), dtype=torch.bool, device=dev)
+    visits = leaves = 0
+    lanes = torch.arange(n, device=dev)
+    t_min = torch.tensor(1e-3, device=dev)
+    while lanes.numel():
+        sp[lanes] -= 1
+        v = stack[lanes, sp[lanes]]
+        leaf = v < 0
+        ln, cl = lanes[leaf], -v[leaf] - 1
+        if ln.numel():
+            tt = threaded.mt_rows(org[ln], dirn[ln], rows[cl], best[ln])
+            tmin = tt.min(dim=1).values
+            first = torch.where(tt == tmin[:, None], k_idx, 128).min(dim=1).values
+            better = tmin < best[ln]
+            best[ln] = torch.where(better, tmin, best[ln])
+            slot[ln] = torch.where(better, (cl * 128 + first).to(torch.int32), slot[ln])
+            seen_cl[cl] = True
+            leaves += ln.numel()
+        li, nd = lanes[~leaf], v[~leaf]
+        if li.numel():
+            b, ch = box[nd], child[nd]
+            o, iv = org[li][:, None], inv[li][:, None]
+            t0 = (b[..., 0:3] - o) * iv
+            t1 = (b[..., 3:6] - o) * iv
+            near = torch.maximum(torch.maximum(torch.minimum(t0[..., 0], t1[..., 0]),
+                                               torch.minimum(t0[..., 1], t1[..., 1])),
+                                 torch.maximum(torch.minimum(t0[..., 2], t1[..., 2]), t_min))
+            far = torch.minimum(torch.minimum(torch.maximum(t0[..., 0], t1[..., 0]),
+                                              torch.maximum(t0[..., 1], t1[..., 1])),
+                                torch.minimum(torch.maximum(t0[..., 2], t1[..., 2]),
+                                              best[li][:, None]))
+            push = (near <= far) & (ch != 0)
+            for c in range(7, -1, -1):
+                m = push[:, c]
+                idx = li[m]
+                stack[idx, sp[idx]] = ch[m, c]
+                sp[idx] += 1
+            seen8[nd] = True
+            visits += li.numel()
+        lanes = lanes[sp[lanes] > 0]
+    t = torch.where(slot < 0, t_max, best)
+    return t, slot, dict(node_visits=visits, leaf_visits=leaves, nodes=int(seen8.sum()),
+                         clusters=int(seen_cl.sum()))
+
+
+def bvh8_bound(pack, n, counts):
+    """K1's bound from bvh8_walk's counts: 8 slab tests an internal node,
+    Möller–Trumbore of 128 slots a leaf; 224 bytes a node (8 boxes, 8 ids)."""
+    ops = counts["node_visits"] * 8 * SLAB_OPS + counts["leaf_visits"] * 128 * MT_OPS
+    nbytes = (n * (RAY_BYTES + HIT_BYTES) + counts["nodes"] * 224
+              + counts["clusters"] * CLUSTER_BYTES)
+    return bound(ops, nbytes)
+
+
+def threaded_bound(n, counts):
+    """K3's bound from the plain walk's counts: one slab test a node visit,
+    Möller–Trumbore of 128 slots a leaf visit; 32 bytes a node."""
+    ops = counts["node_visits"] * SLAB_OPS + counts["leaf_visits"] * 128 * MT_OPS
+    nbytes = (n * (RAY_BYTES + HIT_BYTES) + counts["nodes"] * 32
+              + counts["clusters"] * CLUSTER_BYTES)
+    return bound(ops, nbytes)
+
+
+def sort_rays(org, dirn):
+    """Rays in the compaction-sort order the renderers trace them in."""
+    from rust_raytracer_torch.render import integrator
+
+    alive = torch.ones((org.shape[0],), dtype=torch.bool, device=org.device)
+    perm = torch.sort(integrator._compaction_key(org, dirn, alive), stable=True).indices
+    return org[perm].contiguous(), dirn[perm].contiguous()
+
+
+def t_max_mix(t, slot):
+    """t_max per lane as the renderers pass it: +inf (no sphere or plane in
+    the way), 0 (a dead lane), 3.4e38, or capped short of the hit."""
+    lane = torch.arange(t.shape[0], device=t.device)
+    inf = torch.full_like(t, float("inf"))
+    cap = torch.where(lane % 4 == 0, inf, torch.full_like(t, 3.4e38))
+    cap = torch.where(lane % 4 == 1, torch.zeros_like(t), cap)
+    return torch.where(lane % 4 == 3, torch.where(slot >= 0, t * 0.5, inf), cap)
+
+
+def hold(tag, got, want, t_max, exact_slots):
+    """(t, slot) against (t, slot) on the same rays: hit masks equal, max
+    |dt| 0, t == t_max on a miss, and with exact_slots no slot differing.
+    Returns (max |dt|, slots differing, hits)."""
+    (t_g, i_g), (t_w, i_w) = got, want
+    torch.cuda.synchronize()
+    if not torch.equal(i_g >= 0, i_w >= 0):
+        raise AssertionError(f"{tag}: hit masks differ on {int(((i_g >= 0) != (i_w >= 0)).sum())} rays")
+    both = i_g >= 0
+    err = (t_g[both] - t_w[both]).abs().max().item() if both.any() else 0.0
+    if err != 0:
+        raise AssertionError(f"{tag}: max |dt| {err}")
+    if not torch.equal(t_g[~both], t_max[~both]):
+        raise AssertionError(f"{tag}: missed rays do not return t_max")
+    differ = int((i_g[both] != i_w[both]).sum())
+    if exact_slots and differ:
+        raise AssertionError(f"{tag}: {differ} slots differ")
+    return err, differ, int(both.sum())
+
+
+def threaded_parity(pack, camera, dev):
+    """K3 against its plain version (hit masks, t and slots equal) and
+    against the BVH8 kernel (hit masks and t equal; only an equal-t tie may
+    pick another slot) on 2^18 sorted primary rays over the whole image, a
+    sorted bounce wavefront, and the bounce rays with the t_max mix.
+    Returns the max |dt| and the ray sets, for timing."""
+    from rust_raytracer_torch.ops import bvh8, threaded
+
+    org, dirn = sort_rays(*make_rays(camera, LANES, dev))
+    inf = torch.full((LANES,), float("inf"), device=dev)
+    t_p, i_p = threaded.traverse_plain(pack, org, dirn, inf)
+    org2, dirn2 = sort_rays(*bounce_rays(org, dirn, t_p, i_p))
+    t_b, i_b = threaded.traverse_plain(pack, org2, dirn2, inf)
+    cases = {"primary": (org, dirn, inf), "bounce": (org2, dirn2, inf),
+             "bounce +inf/3.4e38/0/capped": (org2, dirn2, t_max_mix(t_b, i_b))}
+    max_err = 0.0
+    for tag, (o, d, tm) in cases.items():
+        k3 = threaded.intersect_triangles_threaded(pack, o, d, None, tm)
+        plain = threaded.traverse_plain(pack, o, d, tm)
+        err, differ_p, hits = hold(f"K3 {tag}", k3, plain, tm, exact_slots=True)
+        k1 = bvh8.intersect_triangles_bvh8(pack, o, d, None, tm)
+        err1, differ, _ = hold(f"K3 vs BVH8 {tag}", k3, k1, tm, exact_slots=False)
+        max_err = max(max_err, err, err1)
+        log(f"threaded parity {tag}: {LANES} rays, hits {hits}; vs plain: hit masks equal, "
+            f"max |dt| {err:.3e}, slot agreement {1 - differ_p / max(hits, 1):.6f}; vs BVH8 "
+            f"kernel: hit masks equal, max |dt| {err1:.3e}, slot agreement "
+            f"{1 - differ / max(hits, 1):.6f} ({differ} equal-t ties broken apart)")
+    return max_err, cases
+
+
+def threaded_times(pack, cases, card):
+    """K3, its plain version and the BVH8 kernel on the same 2^18 primary
+    and bounce rays (median of 5), with the plain walk's counts and K3's
+    bound.  Returns {tag: (k3_ms, plain_ms, k1_ms, bound_ms, bound_by)}."""
+    from rust_raytracer_torch.ops import bvh8, threaded
+
+    out = {}
+    for tag in ("primary", "bounce"):
+        o, d, tm = cases[tag]
+        counts = {}
+        threaded.traverse_plain(pack, o, d, tm, counts)
+        b_ms, b_by = threaded_bound(o.shape[0], counts)
+        out[tag] = (time_ms(lambda: threaded.intersect_triangles_threaded(pack, o, d, None, tm)),
+                    time_ms(lambda: threaded.traverse_plain(pack, o, d, tm)),
+                    time_ms(lambda: bvh8.intersect_triangles_bvh8(pack, o, d, None, tm)),
+                    b_ms, b_by)
+        k3, plain, k1 = out[tag][:3]
+        log(f"time threaded {tag} rays x{o.shape[0]}: kernel {k3:.3f} ms, plain {plain:.3f} ms, "
+            f"BVH8 kernel {k1:.3f} ms (K3/K1 {k3 / k1:.2f}) (median of 5; {card}); plain walk "
+            f"counts: node visits {counts['node_visits']}, leaf visits {counts['leaf_visits']}, "
+            f"distinct nodes {counts['nodes']}, distinct clusters {counts['clusters']}; bound "
+            f"{b_ms:.4f} ms by {b_by} ({b_ms / k3:.2%} of the kernel's time)")
+    return out
+
+
+def grad_step(pack, static, camera, remat, kernel, seed, n_lanes=GRAD_LANES):
+    """bench.py's fwd+bwd step (bench_backward): one sample per lane,
+    pixels laid out as bench.py:62-67, the differentiable trace to DEPTH
+    without compaction, loss mean(rad ** 2), gradients of every float
+    table of the pack (zeros where a table takes no part)."""
+    from rust_raytracer_torch.core import rng as vrng
+    from rust_raytracer_torch.render import integrator
+
+    dev = pack.device
+    ar = torch.arange(n_lanes, device=dev)
+    px = ar % camera.image_width
+    py = (ar // camera.image_width) % camera.image_height
+    smp = torch.zeros_like(ar)
+    ctx = vrng.Ctx(pixel=py * camera.image_width + px, sample=smp, bounce=0, seed=seed)
+    org, dirn = camera.generate_rays(px, py, smp, ctx)
+    rad = integrator.trace(pack, static, org, dirn, ctx, DEPTH, camera.light_bias,
+                           compact=False, differentiable=True, kernel=kernel, remat=remat)
+    loss = (rad ** 2).mean()
+    fields = pack.float_fields()
+    grads = torch.autograd.grad(loss, [getattr(pack, f) for f in fields], allow_unused=True)
+    return {f: torch.zeros_like(getattr(pack, f)) if g is None else g
+            for f, g in zip(fields, grads)}
+
+
+def grad_gap(a, b):
+    """max over fields of max |a - b| / max |b| (0 where both are 0)."""
+    worst = 0.0
+    for f in b:
+        if b[f].numel() == 0:
+            continue
+        scale = float(b[f].abs().max())
+        if scale > 0:
+            worst = max(worst, float((a[f] - b[f]).abs().max()) / scale)
+        elif a[f].abs().max() > 0:
+            return float("inf")
+    return worst
+
+
+def probe_scene():
+    """tests/_grad_fd_main.py's scene: a diffuse ball on a diffuse floor
+    lit by an emissive quad and a dim sky."""
+    from rust_raytracer_torch.scene import graph as g
+
+    light = g.Plane((0, 2.0, 0), (0.8, 0, 0), (0, 0, 0.8),
+                    g.Emissive(g.Constant((6.0, 6.0, 6.0))))
+    floor = g.Plane((0, -0.4, 0), (-4, 0, 0), (0, 0, 4),
+                    g.Lambertian(g.Constant((0.6, 0.6, 0.6))))
+    ball = g.Sphere((0, 0, 0), 0.35, g.Lambertian(g.Constant((0.7, 0.2, 0.2))))
+    sky = g.Sky(g.Constant((0.1, 0.1, 0.1)))
+    return g.SceneDef(world=g.Group([ball, floor, light, sky]), lights=[light, sky], config={})
+
+
+def probe_grads(scene, camera, fields, device):
+    """Gradients of _grad_fd_main.py's loss (the sum of radiance times cos
+    weights over 16x16 pixels, 1 spp, depth 3, f32) with respect to
+    `fields`, on `device`, through the threaded walk."""
+    from rust_raytracer_torch.core import rng as vrng
+    from rust_raytracer_torch.render import integrator
+    from rust_raytracer_torch.scene import compiler
+
+    pack, static = compiler.compile_scene(scene, device)
+    pack = pack.with_grad()
+    n = 256
+    ar = torch.arange(n, device=device)
+    px, py = ar % 16, (ar // 16) % camera.image_height
+    smp = torch.zeros_like(ar)
+    ctx = vrng.Ctx(pixel=py * 16 + px, sample=smp, bounce=0, seed=7)
+    org, dirn = camera.generate_rays(px, py, smp, ctx)
+    wgt = torch.cos(torch.arange(n * 3, dtype=torch.float64)).reshape(n, 3).float().to(device)
+    rad = integrator.trace(pack, static, org, dirn, ctx, 3, 0.25, differentiable=True,
+                           kernel="threaded")
+    loss = (rad * wgt).sum()
+    grads = torch.autograd.grad(loss, [getattr(pack, f) for f in fields])
+    return {f: g.detach().cpu() for f, g in zip(fields, grads)}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke run needs a CUDA GPU")
     sys.path.insert(0, HERE)
-    from rust_raytracer_tpu import models, native
-    from rust_raytracer_tpu.models import builtin
-    from rust_raytracer_tpu.scene import graph as g
-    from rust_raytracer_tpu.utils import config as cfg
-    from rust_raytracer_tpu.utils import procgen
+    from rust_raytracer_torch import models, native
     from rust_raytracer_torch.core import rng as vrng
-    from rust_raytracer_torch.ops import bvh8
+    from rust_raytracer_torch.models import builtin
+    from rust_raytracer_torch.ops import bvh8, threaded
     from rust_raytracer_torch.ops import wavefront as wf
     from rust_raytracer_torch.render import integrator
     from rust_raytracer_torch.render.camera import camera_from_config
     from rust_raytracer_torch.render.pool import PoolMetrics
-    from rust_raytracer_torch.render.renderer import Renderer
+    from rust_raytracer_torch.render.renderer import BatchMetrics, Renderer
     from rust_raytracer_torch.scene import compiler
+    from rust_raytracer_torch.scene import graph as g
+    from rust_raytracer_torch.utils import config as cfg
+    from rust_raytracer_torch.utils import procgen
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -497,6 +831,17 @@ def main():
         )
         log(f"time {tag} rays x{LANES}: kernel {times[tag][0]:.3f} ms, "
             f"plain {times[tag][1]:.3f} ms (median of 5; {card})")
+    # the BVH8 walk's own counts on the timed bounce rays, for its bound; the
+    # counting walk in torch ops must give the kernel's (t, slot)
+    t_w, i_w, k1_counts = bvh8_walk(pack, org2, dirn2, t_max)
+    hold("BVH8 counting walk", (t_w, i_w), bvh8.intersect_triangles_bvh8(
+        pack, org2, dirn2, None, t_max), t_max, exact_slots=True)
+    k1_bound = bvh8_bound(pack, LANES, k1_counts)
+    log(f"BVH8 walk counts, bounce rays x{LANES} (the torch-ops walk equals the kernel, "
+        f"slots included): internal node visits {k1_counts['node_visits']}, leaf visits "
+        f"{k1_counts['leaf_visits']}, distinct nodes {k1_counts['nodes']}, distinct clusters "
+        f"{k1_counts['clusters']}; bound {k1_bound[0]:.4f} ms by {k1_bound[1]} "
+        f"({k1_bound[0] / times['bounce'][0]:.2%} of the kernel's time)")
     del pack
 
     # ---- 4. a small render on the card agrees with the same on the CPU ----
@@ -551,6 +896,8 @@ def main():
 
     # ---- 7. where a steady pool step's device time goes ----
     step_split(renderer, camera, card, ("bvh8_traverse",))
+    split = device_split("BVH8 pool render", lambda: renderer.render(mode="pool"), card,
+                         ("bvh8_traverse",))
 
     # ---- 8. wavefront: each kernel against its plain version, and the
     # pipeline against the BVH8 kernel, on the traversal inputs of a
@@ -585,7 +932,7 @@ def main():
     dense_err = dense_parity(wpack, *(a[:n_dense].contiguous() for a in mid))
 
     # ---- 10. each wavefront kernel's time against its plain version's ----
-    wf_time = wf_times(wpack, *mid, card)
+    wf_time, wf_bounds = wf_times(wpack, *mid, card)
     del mid
 
     # ---- 11. the wavefront main path ----
@@ -623,9 +970,142 @@ def main():
     # ---- 12. where a steady wavefront pool step's device time goes ----
     step_split(wf_renderer, camera, card, ("wf_cull_kernel", "wf_compact_kernel",
                                            "wf_mt_kernel"))
+    split.update(device_split("wavefront pool render", lambda: wf_renderer.render(mode="pool"),
+                              card, ("wf_cull", "wf_compact", "wf_mt")))
+
+    # ---- 13. the threaded walk (K3) against its plain version and the BVH8
+    # kernel on 2^18 sorted primary, bounce and capped/dead rays ----
+    tpack = renderer.pack
+    k3_err, k3_cases = threaded_parity(tpack, camera, dev)
+
+    # ---- 14. K3's time against its plain version's and the BVH8 kernel's ----
+    k3_time = threaded_times(tpack, k3_cases, card)
+    del k3_cases
+
+    # ---- 15. the batch render at full width through K3 ----
+    b_renderer = Renderer(scene, camera, batch_size=LANES, kernel="threaded", device=dev)
+    b_metrics = BatchMetrics()
+    torch.cuda.synchronize()
+    threaded.launches = threaded.plain_calls = bvh8.launches = bvh8.plain_calls = 0
+    for name in wf.KERNELS:
+        wf.launches[name], wf.plain_calls[name] = 0, 0
+    t0 = time.perf_counter()
+    b_film = b_renderer.render(mode="batch", metrics=b_metrics)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    k3_launches = threaded.launches
+    if not (k3_launches == b_metrics.bounces > 0 and threaded.plain_calls == 0
+            and bvh8.launches == bvh8.plain_calls == 0 and not any(wf.launches.values())
+            and not any(wf.plain_calls.values())):
+        raise AssertionError(
+            f"batch path: K3 launches {k3_launches}, bounces {b_metrics.bounces}, plain calls "
+            f"{threaded.plain_calls}, BVH8 launches {bvh8.launches}, wavefront launches "
+            f"{wf.launches}")
+    b_hdr = check_image(b_film, camera)
+    b_film.save(os.path.join(HERE, "build", "chip_smoke_cornell_dragon_batch.png"))
+    log(f"batch path: cornell_dragon {W}x{h}@{SPP}spp depth {DEPTH}, batches of {LANES}: "
+        f"{total / batch_s:.1f} pixel-samples/s ({batch_s:.3f} s; BVH8 pool render above "
+        f"{total / render_s:.1f}), {b_metrics.batches} batches, {b_metrics.bounces} bounces, "
+        f"K3 launches {k3_launches}, plain calls 0, BVH8 and wavefront launches 0 ({card})")
+    agree, rel = image_agreement(b_hdr, hdr)
+    log(f"batch image vs BVH8 pool image: pixel agreement {agree:.6f}, mean |d|/mean {rel:.3e}")
+    if not (agree >= 0.999 and rel <= 1e-3):
+        raise AssertionError("the batch render disagrees with the BVH8 pool render")
+    del b_film, b_hdr
+    k3_split = {"batch render": device_split(
+        "batch render (K3)", lambda: b_renderer.render(mode="batch"), card,
+        ("threaded_traverse",))["threaded_traverse"]}
+
+    # ---- 16. the fwd+bwd step (bench.py's bench_backward) through K3:
+    # 2^15 lanes, depth 20, gradients of every float table ----
+    gpack = tpack.with_grad()
+    grads, rates = {}, {}
+    for remat in ("none", "hits"):
+        grads[remat] = grad_step(gpack, renderer.static, camera, remat, "threaded", seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        threaded.launches = threaded.plain_calls = 0
+        t0 = time.perf_counter()
+        for r in range(3):
+            grad_step(gpack, renderer.static, camera, remat, "threaded", seed=r + 1)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 3
+        peak = torch.cuda.max_memory_allocated()
+        rates[remat] = GRAD_LANES / step_s
+        if not (threaded.launches > 0 and threaded.plain_calls == 0):
+            raise AssertionError(f"fwd+bwd {remat}: K3 launches {threaded.launches}, plain "
+                                 f"calls {threaded.plain_calls}")
+        log(f"fwd+bwd remat={remat}: cornell_dragon, {GRAD_LANES} lanes, depth {DEPTH}, "
+            f"{len(grads[remat])} float tables: {rates[remat]:.1f} pixel-samples/s "
+            f"({step_s * 1e3:.1f} ms a step, mean of 3 after a warm-up), peak memory "
+            f"{peak / 2**30:.3f} GiB ({peak} bytes), K3 launches {threaded.launches} in 3 "
+            f"steps, plain calls 0 ({card})")
+        k3_split[f"fwd+bwd step ({remat})"] = device_split(
+            f"fwd+bwd step, remat={remat}",
+            lambda: grad_step(gpack, renderer.static, camera, remat, "threaded", seed=4),
+            card, ("threaded_traverse",))["threaded_traverse"]
+    g0 = grads["none"]
+    bad = [f for f, gr in g0.items() if not bool(torch.isfinite(gr).all())]
+    if bad:
+        raise AssertionError(f"non-finite gradients: {bad}")
+    if not g0["tex_const"].abs().max() > 0:
+        raise AssertionError("the gradient of tex_const is zero")
+    remat_gap = grad_gap(grads["hits"], g0)
+    g_auto = grad_step(gpack, renderer.static, camera, "none", "auto", seed=0)
+    auto_gap = grad_gap(g_auto, g0)
+    used = sum(int(gr.numel() > 0 and gr.abs().max() > 0) for gr in g0.values())
+    log(f"fwd+bwd gradients: all finite, {used} of {len(g0)} tables nonzero, |tex_const| max "
+        f"{float(g0['tex_const'].abs().max()):.4e}; remat hits vs none: max |d| / max |g| "
+        f"{remat_gap:.3e} (bound 1e-5); kernel auto (BVH8) vs threaded: {auto_gap:.3e} "
+        f"(bound 1e-3)")
+    if not remat_gap <= 1e-5:
+        raise AssertionError("remat 'hits' and 'none' give different gradients")
+    if not auto_gap <= 1e-3:
+        raise AssertionError("the BVH8 walk's gradients differ from K3's")
+    del gpack, grads, g0, g_auto
+
+    # ---- 17. small gradients on the card against the same on the CPU: the
+    # scene of tests/_grad_fd_main.py (spheres and planes), then the
+    # cornell_dragon shell around a small knot seen from close by (K3) ----
+    from rust_raytracer_torch.render.camera import Camera
+
+    probe_cam = Camera(image_width=16, aspect_ratio=1.0, samples_per_pixel=1, max_depth=3,
+                       position=(0, 0.3, 1.6), look_at=(0, 0, 0), focal_length=35.0)
+    knot_cam = Camera(image_width=16, aspect_ratio=1.0, samples_per_pixel=1, max_depth=3,
+                      position=tuple(scene.config["camera_pos"]),
+                      look_at=(267.5, 200.0, 277.5), focal_length=120.0)
+    probes = (("_grad_fd_main scene", probe_scene(), probe_cam,
+               ("sph_center", "sph_radius", "pln_corner", "background", "tex_const")),
+              ("small cornell_dragon", mini, knot_cam, ("tri_attr", "pln_corner", "tex_const")))
+    for tag, pscene, pcam, fields in probes:
+        threaded.launches = 0
+        on_card = probe_grads(pscene, pcam, fields, dev)
+        card_launches = threaded.launches
+        on_cpu = probe_grads(pscene, pcam, fields, torch.device("cpu"))
+        cpu_gap = grad_gap(on_card, on_cpu)
+        log(f"probe gradients card vs cpu, {tag} (16x16, depth 3, K3 launches "
+            f"{card_launches}): max |d| / max |g| {cpu_gap:.3e} (bound 1e-4)")
+        if not cpu_gap <= 1e-4:
+            raise AssertionError(f"{tag}: the card's gradients disagree with the CPU's")
+    if card_launches == 0:
+        raise AssertionError("the small cornell_dragon gradient launched no K3 kernel")
 
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")
+    loaded = [m for m in sys.modules if m.split(".")[0] == "rust_raytracer_tpu"]
+    if loaded:
+        raise AssertionError(f"modules of the JAX package were imported: {loaded}")
+    # step 2's redesign order: each kernel's measured device time over one
+    # main-path run, less its launches times its bound at 2^18 rays
+    excess = [("K1 bvh8_traverse, BVH8 pool render", *split["bvh8_traverse"], k1_bound[0])]
+    excess += [(f"{k} {nm}, wavefront pool render", *split[nm], wf_bounds[nm][0])
+               for k, nm in zip(("K2a", "K2b", "K2c"), wf.KERNELS)]
+    excess += [(f"K3 threaded_traverse, {tag}", *v, k3_time["bounce"][3])
+               for tag, v in k3_split.items()]
+    excess.sort(key=lambda x: -(x[1] - x[2] * x[3]))
+    log("redesign order, by measured device ms a main-path run less launches x bound: "
+        + "; ".join(f"{tag} {ms:.1f} - {n} x {b:.4f} = {ms - n * b:.1f} ms"
+                    for tag, ms, n, b in excess) + f" ({card})")
     wf_err = {"wf_cull": 0, "wf_compact": 0,
               "wf_mt": max([dense_err] + [st["mt_err"] for st in stage.values()])}
     replaces = {"wf_cull": 302, "wf_compact": 386, "wf_mt": 108}
@@ -638,8 +1118,12 @@ def main():
         "max_abs_err": max_err,
         "ms": times["bounce"][0],
         "plain_ms": times["bounce"][1],
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
         "ms_primary": times["primary"][0],
         "plain_ms_primary": times["primary"][1],
+        "render_device_ms": split["bvh8_traverse"][0],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -649,7 +1133,27 @@ def main():
         "max_abs_err": wf_err[name],
         "ms": wf_time[name][0],
         "plain_ms": wf_time[name][1],
-    } for name in wf.KERNELS]}))
+        "bound_ms": wf_bounds[name][0],
+        "bound_by": wf_bounds[name][1],
+        "library_ms": None,
+        "render_device_ms": split[name][0],
+    } for name in wf.KERNELS] + [{
+        "name": "threaded_traverse",
+        "route": "cuda",
+        "source": "rust_raytracer_torch/csrc/threaded_traverse.cu",
+        "replaces": "rust_raytracer_tpu/ops/pallas_intersect.py:61",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_time["bounce"][0],
+        "plain_ms": k3_time["bounce"][1],
+        "bound_ms": k3_time["bounce"][3],
+        "bound_by": k3_time["bounce"][4],
+        "library_ms": None,
+        "ms_primary": k3_time["primary"][0],
+        "plain_ms_primary": k3_time["primary"][1],
+        "render_device_ms": k3_split["batch render"][0],
+        "step_device_ms": k3_split["fwd+bwd step (none)"][0],
+    }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,17 +5,21 @@ reference.  The layout mirrors the reference package so each module's
 counterpart sits at the same path:
 
   core/    counter-based RNG (pcg4d, bit-exact) and batched vector math
-  scene/   JAX-free scene compiler -> ScenePack of device tensors
-  ops/     intersection, BVH8 traversal (hand-written CUDA kernel),
-           textures, lights, shading, tonemapping
-  render/  camera, integrator vertex, persistent ray pool, film, renderer
+  scene/   scene graph, BVH builder and BVH8 collapse, JAX-free scene
+           compiler -> ScenePack of device tensors
+  native/  the C++ BVH builder and OBJ parser, built with g++ at first use
+  ops/     intersection, the traversals (BVH8 walk, threaded walk,
+           wavefront pipeline; hand-written CUDA kernels), textures,
+           lights, shading, tonemapping
+  render/  camera, integrator (path vertex, batch and differentiable
+           trace), persistent ray pool, film, renderer
+  models/  built-in scenes;  utils/  config, procedural meshes, OBJ assets
   csrc/    CUDA C++ sources, built with nvcc at first use into build/
 
-Host-side scene description is shared with the reference package and
-imported from it unchanged: `models`, `scene.graph`, `scene.bvh_builder`,
-`scene.bvh8`, `scene.dsl`, `native`, `utils.procgen`, `utils.assets` and
-`utils.config.merge_scene_config` / `RenderConfig`.  Nothing here imports
-JAX.
+The host-side modules (scene/graph.py, bvh_builder.py, bvh8.py, native/,
+models/, utils/) are the port's own copies of the reference package's,
+held equal to them by tests/test_torch_scene.py.  Nothing here imports
+JAX or the reference package.
 
 Every public entry takes an explicit `device`; nothing picks one on its own.
 """

@@ -22,31 +22,21 @@
 // counterpart here.  Left for later work: wide-node prefetch, a shared-memory
 // stack, persistent threads with a work queue, near-first child order.
 //
-// Arithmetic is the reference kernel's, operation for operation, and the
-// library is built with -fmad=false and without --use_fast_math: no FMA
-// contraction and IEEE division (div.rn), so every t equals the plain
-// PyTorch version's (ops/bvh8.py:traverse_plain) for the same triangle.
-// min/max in the slab test propagate NaN as jnp.minimum/maximum do: a box
-// whose slab product is NaN (zero direction component with the origin on
-// the slab plane) is rejected, as in the reference.
+// Arithmetic is the reference kernel's, operation for operation
+// (traverse_common.cuh: NaN-propagating min/max, the shared Möller–Trumbore
+// leaf loop), so every t equals the plain PyTorch version's
+// (ops/threaded.py:traverse_plain) for the same triangle.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "traverse_common.cuh"
+
 #define STACK 160          // must match ops/bvh8.py:STACK
-#define CLUSTER 128
-#define DET_EPS 1e-12f
-#define T_MIN_STATIC 1e-3f
-#define BIG 3.4e38f
 #define THREADS 128
 
-__device__ __forceinline__ float nan_min(float a, float b) {
-    return (a < b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-    return (a > b || a != a) ? a : b;
-}
+using rrt::nan_max;
+using rrt::nan_min;
 
 // box8:   (n8, 8, 6) f32  child AABBs lo_xyz, hi_xyz (empty slots inverted)
 // child8: (n8, 8) i32     0 empty | >0 BVH8 node id | <0 ~cluster id
@@ -72,7 +62,7 @@ bvh8_traverse_kernel(const float* __restrict__ box8,
     const float tmax = t_max[i];
 
     // +inf clamps to BIG: an all-miss cluster must not beat the initial best
-    float best_t = nan_min(tmax, BIG);
+    float best_t = nan_min(tmax, rrt::kBig);
     int best_i = -1;
 
     int stack[STACK];
@@ -82,43 +72,8 @@ bvh8_traverse_kernel(const float* __restrict__ box8,
     while (sp > 0) {
         const int v = stack[--sp];
         if (v < 0) {
-            // leaf: Möller–Trumbore over the cluster's 128 triangle slots;
-            // a sequential strict `<` keeps the lowest lane at equal t
-            const int cluster = -v - 1;
-            const float4* rows = reinterpret_cast<const float4*>(tri) +
-                                 (size_t)cluster * CLUSTER * 3;
-            for (int k = 0; k < CLUSTER; ++k) {
-                const float4 r0 = rows[3 * k];
-                const float4 r1 = rows[3 * k + 1];
-                const float4 r2 = rows[3 * k + 2];
-                const float v0x = r0.x, v0y = r0.y, v0z = r0.z;
-                const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
-                const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
-                const float back = r2.y;
-
-                const float px = dy * e2z - dz * e2y;
-                const float py = dz * e2x - dx * e2z;
-                const float pz = dx * e2y - dy * e2x;
-                const float det = e1x * px + e1y * py + e1z * pz;
-                const float dd = back > 0.5f ? fabsf(det) : det;
-                const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-                const float bx = ox - v0x;
-                const float by = oy - v0y;
-                const float bz = oz - v0z;
-                const float u = (bx * px + by * py + bz * pz) * inv_det;
-                const float qx = by * e1z - bz * e1y;
-                const float qy = bz * e1x - bx * e1z;
-                const float qz = bx * e1y - by * e1x;
-                const float w = (dx * qx + dy * qy + dz * qz) * inv_det;
-                const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-                const bool ok = (dd > DET_EPS) && (u >= 0.0f) && (u <= 1.0f) &&
-                                (w >= 0.0f) && (u + w <= 1.0f) &&
-                                (t > T_MIN_STATIC) && (t < best_t);
-                if (ok) {
-                    best_t = t;
-                    best_i = cluster * CLUSTER + k;
-                }
-            }
+            // leaf: Möller–Trumbore over the cluster's 128 triangle slots
+            rrt::mt_cluster(tri, -v - 1, ox, oy, oz, dx, dy, dz, best_t, best_i);
         } else {
             // internal node: slab-test the 8 children, push hits 7 -> 0 so
             // slot 0 (first on the Morton curve) pops first
@@ -136,7 +91,7 @@ bvh8_traverse_kernel(const float* __restrict__ box8,
                 const float tz1 = (b[5] - oz) * inv_z;
                 const float near = nan_max(
                     nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)),
-                    nan_max(nan_min(tz0, tz1), T_MIN_STATIC));
+                    nan_max(nan_min(tz0, tz1), rrt::kTMin));
                 const float far = nan_min(
                     nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
                     nan_min(nan_max(tz0, tz1), best_t));

@@ -31,17 +31,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "traverse_common.cuh"
+
 #define WF_R 8          // rays per packet
 #define WF_SN 128       // cluster lanes per supernode block
-#define T_MIN_STATIC 1e-3f
+#define T_MIN_STATIC rrt::kTMin
 
-__device__ __forceinline__ float nan_min(float a, float b) {
-    return (a < b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-    return (a > b || a != a) ? a : b;
-}
+using rrt::nan_max;
+using rrt::nan_min;
 
 // sn_slot: (n_pk, k1) i32   L1-selected supernode per slot
 // n1:      (n_pk,) i32      live slots per packet

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernel library.
 
-Every csrc/*.cu is compiled by nvcc for sm_90a at first use and linked into
-one shared library with a plain C interface, build/rrt_torch/librrt_kernels.so
+Every csrc/*.cu (with the shared csrc/*.cuh headers) is compiled by nvcc for
+sm_90a at first use and linked into one shared library with a plain C interface, build/rrt_torch/librrt_kernels.so
 (gitignored), loaded with ctypes.  The sources compile in parallel, one nvcc
 process each, then one nvcc links the objects.  Flags: IEEE division and no
 FMA contraction (-fmad=false, no --use_fast_math), so a kernel's arithmetic
@@ -78,10 +78,12 @@ def _run_all(cmds):
 
 def build_library() -> Path:
     """Compile csrc/*.cu into LIB_PATH if it is missing or older than a
-    source.  Raises with nvcc's stderr on failure."""
+    source or a header (csrc/*.cuh).  Raises with nvcc's stderr on
+    failure."""
     srcs = sources()
+    deps = srcs + sorted(CSRC.glob("*.cuh"))
     if LIB_PATH.exists() and all(
-        s.stat().st_mtime <= LIB_PATH.stat().st_mtime for s in srcs
+        s.stat().st_mtime <= LIB_PATH.stat().st_mtime for s in deps
     ):
         return LIB_PATH
     nvcc = find_nvcc()

@@ -13,8 +13,10 @@ f32 in; (t, slot) out, where slot = cluster * 128 + lane indexes the padded
 triangle table and t == t_max where nothing was hit.  t_min is fixed at
 T_MIN_STATIC = 1e-3 (the caller's t_min is ignored, as in the reference).
 
-`traverse_plain` ports the reference's own oracle, the threaded-BVH walk of
-ops/intersect.py (kernel="jnp"), with the same contract.
+Its plain version is `traverse_plain` of ops/threaded.py, the port's one
+threaded-BVH walk (the reference's oracle, ops/intersect.py kernel="jnp"),
+with the same contract: the BVH8 walk visits leaves in another order, so
+only the slot of an equal-t tie may differ from it.
 """
 from __future__ import annotations
 
@@ -22,11 +24,10 @@ import torch
 
 from . import _cuda
 from ._cuda import build_library  # noqa: F401 (re-exported: chip_smoke.py builds through it)
+from .threaded import check_rays, traverse_plain
 
 CLUSTER = 128
 STACK = 160          # must match csrc/bvh8_traverse.cu
-DET_EPS = 1e-12
-T_MIN_STATIC = 1e-3  # reference: camera.rs:294 interval lower bound
 
 # Launch counters: `launches` counts CUDA kernel launches, `plain_calls`
 # calls of the plain version through the wrapper.
@@ -34,21 +35,16 @@ launches = 0
 plain_calls = 0
 
 
-def check_rays(org, dirn, t_max):
-    n = org.shape[0]
-    for name, a, shape in (("org", org, (n, 3)), ("dirn", dirn, (n, 3)),
-                           ("t_max", t_max, (n,))):
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
-        if tuple(a.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(a.shape)}")
-        if a.device != org.device:
-            raise ValueError(f"{name} is on {a.device}, org on {org.device}")
+def fits(pack) -> bool:
+    """Whether the BVH8 kernel can run this scene: it has a BVH8 and the
+    walk's stack (at most 8 * depth + 1 entries) fits in STACK.  The
+    counterpart of the reference's `_fits_vmem` (ops/intersect.py:350)."""
+    return pack.bvh8_child.shape[0] > 0 and 8 * pack.bvh8_depth + 1 <= STACK
 
 
 def _launch(pack, org, dirn, t_max):
     global launches
-    if 8 * pack.bvh8_depth + 1 > STACK:
+    if not fits(pack):
         raise ValueError(
             f"BVH8 depth {pack.bvh8_depth} needs a traversal stack of "
             f"{8 * pack.bvh8_depth + 1} entries; the kernel has {STACK}")
@@ -86,99 +82,3 @@ def intersect_triangles_bvh8(pack, org, dirn, t_min, t_max):
         raise ValueError(f"no BVH8 traversal for device {org.device}")
     plain_calls += 1
     return traverse_plain(pack, org, dirn, t_max)
-
-
-def mt_rows(o, d, rows, best):
-    """Möller–Trumbore of rays (L, 1) against triangle rows (L, K, 12) in
-    the reference kernel's operation order; returns (L, K) t with +inf
-    where a triangle is rejected (including t >= best)."""
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    v0x, v0y, v0z = rows[..., 0], rows[..., 1], rows[..., 2]
-    e1x, e1y, e1z = rows[..., 3], rows[..., 4], rows[..., 5]
-    e2x, e2y, e2z = rows[..., 6], rows[..., 7], rows[..., 8]
-    back = rows[..., 9]
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    dd = torch.where(back > 0.5, torch.abs(det), det)
-    ok = dd > DET_EPS
-    inv_det = 1.0 / torch.where(det == 0.0, torch.ones_like(det), det)
-    bx = o[:, 0:1] - v0x
-    by = o[:, 1:2] - v0y
-    bz = o[:, 2:3] - v0z
-    u = (bx * px + by * py + bz * pz) * inv_det
-    qx = by * e1z - bz * e1y
-    qy = bz * e1x - bx * e1z
-    qz = bx * e1y - by * e1x
-    w = (dx * qx + dy * qy + dz * qz) * inv_det
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-    ok &= (u >= 0.0) & (u <= 1.0) & (w >= 0.0) & (u + w <= 1.0)
-    ok &= (t > T_MIN_STATIC) & (t < best[:, None])
-    return torch.where(ok, t, torch.full_like(t, float("inf")))
-
-
-# leaf lanes tested per block in the plain version: bounds the (L, 128, 12)
-# gathered triangle rows at ~400 MB
-_LEAF_BLOCK = 1 << 16
-
-
-def traverse_plain(pack, org, dirn, t_max):
-    """Plain PyTorch version of the traversal: the reference's threaded-BVH
-    walk (ops/intersect.py:436-497), every active lane advancing one node
-    per step, with the kernel's contract (static t_min, t == t_max on a
-    miss, slot ids into the padded triangle table).
-
-    Within a leaf the lowest slot wins at equal t; across leaves a later
-    leaf must be strictly closer — the reference's sequential `t < best`.
-    """
-    n = org.shape[0]
-    dev = org.device
-    best_t = t_max.clone()
-    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    n_nodes = pack.bvh_min.shape[0]
-    if n_nodes == 0 or pack.tri_rows.shape[0] == 0:
-        return best_t, best_i
-
-    inv = 1.0 / dirn
-    node = torch.zeros((n,), dtype=torch.int64, device=dev)
-    lanes = torch.arange(n, device=dev)
-    bmin_t, bmax_t = pack.bvh_min, pack.bvh_max
-    hit_link = pack.bvh_hit_link.to(torch.int64)
-    miss_link = pack.bvh_miss_link.to(torch.int64)
-    leaf_start = pack.bvh_leaf_start.to(torch.int64)
-    rows = pack.tri_rows.view(-1, CLUSTER, 12)
-    k_idx = torch.arange(CLUSTER, device=dev)
-
-    while lanes.numel():
-        nd = node[lanes]
-        o, iv, bt = org[lanes], inv[lanes], best_t[lanes]
-        t0 = (bmin_t[nd] - o) * iv
-        t1 = (bmax_t[nd] - o) * iv
-        near = torch.minimum(t0, t1)
-        far = torch.maximum(t0, t1)
-        t_near = torch.maximum(
-            torch.maximum(torch.maximum(near[:, 0], near[:, 1]), near[:, 2]),
-            torch.full_like(bt, T_MIN_STATIC))
-        t_far = torch.minimum(
-            torch.minimum(torch.minimum(far[:, 0], far[:, 1]), far[:, 2]), bt)
-        box_hit = t_near <= t_far
-        ls = leaf_start[nd]
-        is_leaf = box_hit & (ls >= 0)
-
-        leaf_sel = torch.nonzero(is_leaf).squeeze(1)
-        for s in range(0, leaf_sel.numel(), _LEAF_BLOCK):
-            sel = leaf_sel[s:s + _LEAF_BLOCK]
-            ln = lanes[sel]
-            start = ls[sel]
-            tt = mt_rows(org[ln], dirn[ln], rows[start // CLUSTER], best_t[ln])
-            tmin = tt.min(dim=1).values
-            first = torch.where(tt == tmin[:, None], k_idx, CLUSTER).min(dim=1).values
-            better = tmin < best_t[ln]
-            best_t[ln] = torch.where(better, tmin, best_t[ln])
-            best_i[ln] = torch.where(better, (start + first).to(torch.int32), best_i[ln])
-
-        nxt = torch.where(box_hit & (ls < 0), hit_link[nd], miss_link[nd])
-        node[lanes] = nxt
-        lanes = lanes[nxt < n_nodes]
-    return best_t, best_i

@@ -2,10 +2,14 @@
 
 Spheres and planes are tested one primitive at a time over all rays with a
 running closest hit; triangles go through the chosen traversal, the BVH8
-walk (ops/bvh8.py) or the wavefront pipeline (ops/wavefront.py): CUDA
-kernels on the card, their plain versions on the CPU; sun and sky are
-analytic and evaluated after surfaces.  Hits carry (t, kind, prim);
-`hit_attributes` gathers the winning primitive and computes the hit record.
+walk (ops/bvh8.py), the threaded-BVH walk (ops/threaded.py) or the
+wavefront pipeline (ops/wavefront.py): CUDA kernels on the card, their
+plain versions on the CPU; sun and sky are analytic and evaluated after
+surfaces.  Hits carry (t, kind, prim); `hit_attributes` gathers the winning
+primitive and computes the hit record.  The traversal is not
+differentiable: `intersect` runs it under torch.no_grad() (the reference's
+stop_gradient on the hits), and `hit_attributes` recomputes t from the
+gathered primitive, so gradients flow through that recomputation.
 
 Volumes are not ported yet: a pack with volumes raises NotImplementedError.
 """
@@ -18,6 +22,7 @@ import torch
 from ..core import math as vmath
 from ..scene import pack as sp
 from . import bvh8
+from . import threaded
 from . import wavefront
 
 # t used for sun hits: beats the sky (inf), loses to any finite surface.
@@ -25,18 +30,16 @@ T_SUN = 3.0e38
 DET_EPS = 1e-12
 SUN_THETA_MAX = 1e-3  # reference: sun.rs:14
 
-# Triangle traversal choices, checked once by Renderer: "auto" and "bvh8"
-# are the exact BVH8 walk, "wavefront" the cull -> compact -> MT pipeline
-# (approximate when a packet overflows a cap; the overflow is counted).
-# The reference's threaded walk is not ported yet (ROADMAP K3).
-KERNELS = ("auto", "bvh8", "wavefront")
-_UNPORTED = {"threaded": "ROADMAP Queue 2, K3 (the threaded-BVH walk)"}
+# Triangle traversal choices, checked once by Renderer: "bvh8" is the exact
+# BVH8 walk, "threaded" the exact threaded-BVH walk, "wavefront" the cull ->
+# compact -> MT pipeline (approximate when a packet overflows a cap; the
+# overflow is counted).  "auto" is the BVH8 walk where it can run the scene
+# and the threaded walk where it cannot (bvh8.fits: no BVH8, or a BVH8 too
+# deep for the kernel's stack) — decided from the pack, before any launch.
+KERNELS = ("auto", "bvh8", "threaded", "wavefront")
 
 
 def check_kernel(kernel: str) -> None:
-    if kernel in _UNPORTED:
-        raise NotImplementedError(
-            f"kernel={kernel!r} is not ported yet: {_UNPORTED[kernel]}")
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; choose from {KERNELS}")
 
@@ -162,8 +165,8 @@ def intersect_planes(pack, org, dirn, t_min, t_max):
 def intersect_triangles(pack, org, dirn, t_min, t_max, kernel: str = "auto",
                         return_stats: bool = False):
     """Closest triangle hit: (t, slot) with t == t_max where nothing was
-    hit (see ops/bvh8.py for the contract), through the BVH8 walk or, for
-    kernel="wavefront", the wavefront pipeline.  With return_stats=True the
+    hit (see ops/threaded.py for the contract), through the traversal
+    `kernel` names (see KERNELS).  With return_stats=True the
     return is (t, slot, stats), stats["wf_overflow"] the number of packets
     that overflowed a wavefront cap (a 0-d int64 tensor; 0 for the exact
     walk).  The reference's VMEM-fit check for the wavefront pipeline
@@ -180,6 +183,8 @@ def intersect_triangles(pack, org, dirn, t_min, t_max, kernel: str = "auto",
                 "cluster tables; use kernel='auto'")
         t, i, ov = wavefront.intersect_triangles_wavefront(
             pack, org, dirn, t_min, t_max, return_overflow=True)
+    elif kernel == "threaded" or (kernel == "auto" and not bvh8.fits(pack)):
+        t, i = threaded.intersect_triangles_threaded(pack, org, dirn, t_min, t_max)
     else:
         t, i = bvh8.intersect_triangles_bvh8(pack, org, dirn, t_min, t_max)
     if return_stats:
@@ -196,11 +201,18 @@ def intersect(pack, org, dirn, t_min, alive=None, kernel: str = "auto",
     finite surface hits first, then the sun (t = T_SUN) within its cone,
     then the last sky catches everything still unbounded.  `alive` bounds
     the triangle traversal's t_max at 0 for dead lanes, so they exit the
-    BVH at the root; their results are garbage by contract.
+    BVH at the root; their results are garbage by contract.  The whole
+    search runs under torch.no_grad(): the hits carry no gradient.
     """
     if pack.vol_kind.shape[0]:
         raise NotImplementedError(
             "volumes are not ported yet (ROADMAP Queue 1, volumes)")
+    with torch.no_grad():
+        return _intersect(pack, org.detach(), dirn.detach(), t_min, alive, kernel,
+                          return_stats)
+
+
+def _intersect(pack, org, dirn, t_min, alive, kernel, return_stats):
     n = org.shape[0]
     dev, dtype = org.device, org.dtype
     inf = _full(n, float("inf"), dtype, dev)
@@ -211,8 +223,9 @@ def intersect(pack, org, dirn, t_min, alive=None, kernel: str = "auto",
     tri_tmax = torch.minimum(t_sph, t_pln)
     if alive is not None:
         tri_tmax = torch.where(alive, tri_tmax, torch.zeros_like(tri_tmax))
-    t_tri, i_tri, stats = intersect_triangles(pack, org, dirn, t_min, tri_tmax,
-                                              kernel=kernel, return_stats=True)
+    t_tri, i_tri, stats = intersect_triangles(pack, org.contiguous(), dirn.contiguous(),
+                                              t_min, tri_tmax, kernel=kernel,
+                                              return_stats=True)
     t_tri = torch.where(i_tri >= 0, t_tri, inf)
 
     t_best = torch.minimum(torch.minimum(t_sph, t_pln), t_tri)

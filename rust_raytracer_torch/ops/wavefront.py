@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from . import bvh8
+from . import threaded
 
 R = 8                       # rays per packet
 SN = 128                    # cluster lanes per supernode block
@@ -192,7 +192,7 @@ def mt_plain(cl, cnt, org, dirn, tm, tri_rows):
             p = act[s:s + step]
             c = cl[p, j]
             tri = rows[c.long()].repeat_interleave(R, dim=0)  # (P*R, 128, 12)
-            tt = bvh8.mt_rows(o[p].reshape(-1, 3), d[p].reshape(-1, 3), tri,
+            tt = threaded.mt_rows(o[p].reshape(-1, 3), d[p].reshape(-1, 3), tri,
                               no_best[:tri.shape[0]]).view(-1, R, CLUSTER)
             better = tt < bt[p]
             bt[p] = torch.where(better, tt, bt[p])
@@ -332,7 +332,7 @@ def intersect_triangles_wavefront(pack, org, dirn, t_min, t_max, *,
     supernode tables, the dense one otherwise (reference :733-795)."""
     del t_min
     n = org.shape[0]
-    bvh8.check_rays(org, dirn, t_max)
+    threaded.check_rays(org, dirn, t_max)
     slot = torch.full((n,), -1, dtype=torch.int32, device=org.device)
     ov = torch.zeros((), dtype=torch.int64, device=org.device)
     if pack.tri_rows.shape[0] == 0 or pack.wf_cl_lo.shape[0] == 0 or n == 0:

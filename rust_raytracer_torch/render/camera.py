@@ -19,10 +19,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from rust_raytracer_tpu.utils.config import RenderConfig
-
 from ..core import math as vmath
 from ..core import rng as vrng
+from ..utils.config import RenderConfig
 
 
 @dataclasses.dataclass
@@ -133,7 +132,8 @@ class Camera:
 
 
 def camera_from_config(scene_config: Dict[str, object], render: RenderConfig) -> Camera:
-    """Build a Camera from merged scene config and render config (the
+    """Build a Camera from merged scene config and render config
+    (utils/config.merge_scene_config, utils/config.RenderConfig; the
     reference's utils/config.make_camera)."""
     return Camera(
         image_width=int(scene_config["output_width"]),

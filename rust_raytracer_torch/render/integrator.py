@@ -1,16 +1,31 @@
-"""Path-vertex evaluation and the wavefront compaction key (port of
-rust_raytracer_tpu/render/integrator.py: `_compaction_key`, `shade_vertex`).
+"""The path integrator (port of rust_raytracer_tpu/render/integrator.py):
+the compaction key, the path vertex, and `trace`, which follows a batch of
+rays to the end of their paths.
 
-The bounded-loop `trace` (batch mode) and the differentiable trace are not
-ported yet (ROADMAP Queue 1).
+The reference's recursive `Camera::ray_color` (camera.rs:282-332) is a loop
+over bounce depth on the lane arrays, with the one-sample NEE mixture at
+each vertex.  Between bounces `trace` can compact and sort the lanes (dead
+last, then direction octant and origin Morton code); the RNG is keyed by
+the (pixel, sample, bounce) ids that travel with each lane (core/rng.py),
+so reordering changes no sample.
+
+`trace(differentiable=True)` is the reverse-mode form: every bounce runs (no
+early exit), the traversal is detached (ops/intersect.py runs it under
+torch.no_grad()), and `remat` picks what the backward pass recomputes.
 """
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
+import torch
+from torch.utils import checkpoint as ckpt
+
+from ..core import rng as vrng
 from ..ops import intersect as isect
 from ..ops import shade as shd
 from ..ops import texture as tex
+
+REMAT_MODES = ("none", "hits", "full")
 
 # Minimum hit distance (reference: camera.rs:294 Interval(0.001, INF)).
 T_MIN = 1e-3
@@ -55,6 +70,33 @@ def _compaction_key(org, dirn, alive, dir_bits: int = 3):
     return key
 
 
+def shade_hits(pack, static, org, dirn, hit, ctx, light_bias):
+    """The part of a path vertex after the traversal: hit record, texture
+    program, NEE-mixture shading, miss -> background.  Differentiable in
+    the pack's float tables, `org` and `dirn`; `hit` is detached.
+
+    A lane that hit nothing has a zero normal; its shading is masked (the
+    path ends), but the masked branches are NaN there (an orthonormal basis
+    about a zero vector), and in the backward pass 0 * NaN would reach the
+    gradients of material 0's textures, as it does in the reference
+    (ROADMAP Queue 3).  Such a lane gets a unit normal instead, which
+    changes no output that a caller reads: the direction of an ended path
+    is never traced.
+
+    Returns (emission, weight, new_dir, ended, pos)."""
+    attr = isect.hit_attributes(pack, org, dirn, hit)
+    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=org.dtype, device=org.device)
+    attr = attr._replace(normal=torch.where(attr.valid[:, None], attr.normal, unit_z))
+    tex_values = tex.eval_program(static.tex_program, pack.tex_data, attr.uv,
+                                  attr.pos, tex_const=pack.tex_const)
+    res = shd.shade(pack, static.light_list, tex_values, org, dirn, hit, attr,
+                    ctx, light_bias)
+    miss = ~attr.valid
+    emission = torch.where(miss[:, None], pack.background[None, :], res.emission)
+    ended = res.terminate | miss
+    return emission, res.weight, res.new_dir, ended, attr.pos
+
+
 def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
                  kernel: str = "auto"):
     """One path vertex: closest hit, texture program, NEE-mixture shading,
@@ -63,16 +105,109 @@ def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
     Returns (emission, weight, new_dir, ended, pos, stats) as the
     reference; stats["wf_overflow"] is the number of packets that
     overflowed a wavefront cap this vertex (a 0-d int64 tensor on the
-    device; 0 for the exact BVH8 walk).
+    device; 0 for the exact walks).
     """
     hit, stats = isect.intersect(pack, org, dirn, T_MIN, alive=alive, kernel=kernel,
                                  return_stats=True)
-    attr = isect.hit_attributes(pack, org, dirn, hit)
-    tex_values = tex.eval_program(static.tex_program, pack.tex_data, attr.uv,
-                                  attr.pos, tex_const=pack.tex_const)
-    res = shd.shade(pack, static.light_list, tex_values, org, dirn, hit, attr,
-                    ctx, light_bias)
-    miss = ~attr.valid
-    emission = torch.where(miss[:, None], pack.background[None, :], res.emission)
-    ended = res.terminate | miss
-    return emission, res.weight, res.new_dir, ended, attr.pos, stats
+    return (*shade_hits(pack, static, org, dirn, hit, ctx, light_bias), stats)
+
+
+def trace(pack, static, org, dirn, rng_ctx, max_depth: int, light_bias: float,
+          compact: bool = True, differentiable: bool = False,
+          kernel: str = "auto", remat: str = "hits", stats: Optional[dict] = None):
+    """Trace a batch of rays to the end of their paths; returns the (N, 3)
+    radiance in the caller's lane order (reference integrator.py:143-261).
+
+    `rng_ctx` carries the lanes' pixel and sample ids (int tensors holding
+    u32) and the seed; its bounce is ignored (each bounce keys its own).
+    With compact=True the lanes are sorted before each bounce by a stable
+    int64 sort of `_compaction_key`, and the radiance is scattered back to
+    the caller's order at the end.
+
+    differentiable=False: a loop that stops when max_depth bounces ran or
+    no lane is alive (one host read a bounce), under torch.no_grad().
+    differentiable=True: all max_depth bounces, differentiable in the
+    pack's float tables (ScenePack.with_grad); `remat` trades backward
+    recompute for saved activations, with the same forward values and the
+    same gradients up to the order in which autograd sums a table's
+    contributions from different bounces:
+      "none" — save every bounce's activations;
+      "hits" — the traversal runs outside torch.utils.checkpoint and the
+               rest of the bounce inside it, with the hits as inputs: the
+               backward pass recomputes the shading, never a traversal;
+      "full" — the whole bounce, traversal included, under checkpoint.
+    A mode that fails raises; nothing falls back to another.
+
+    `stats`, a dict if given, gets "bounces": the bounces traced (each
+    traces the whole batch once).
+    """
+    if remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat {remat!r}; choose from {REMAT_MODES}")
+    if not differentiable:
+        with torch.no_grad():
+            return _trace(pack, static, org, dirn, rng_ctx, max_depth, light_bias,
+                          compact, False, kernel, remat, stats)
+    return _trace(pack, static, org, dirn, rng_ctx, max_depth, light_bias, compact,
+                  True, kernel, remat, stats)
+
+
+def _trace(pack, static, org, dirn, rng_ctx, max_depth, light_bias, compact,
+           differentiable, kernel, remat, stats):
+    n = org.shape[0]
+    dev = org.device
+    throughput = torch.ones((n, 3), dtype=org.dtype, device=dev)
+    radiance = torch.zeros((n, 3), dtype=org.dtype, device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    pixel = vrng.as_u32(rng_ctx.pixel)
+    sample = vrng.as_u32(rng_ctx.sample)
+    src = torch.arange(n, device=dev)
+
+    def shade_bounce(org, dirn, throughput, radiance, alive, hit, ctx):
+        """Shade a bounce's hits and advance the lane state (reference
+        integrator.py:197-208): add the emission, scale the throughput, end
+        paths, keep dead lanes numerically inert."""
+        emission, weight, next_dir, ended, pos = shade_hits(pack, static, org, dirn, hit,
+                                                            ctx, light_bias)
+        radiance = radiance + throughput * emission * alive[:, None]
+        throughput = throughput * torch.where(alive[:, None], weight, 0.0)
+        alive = alive & ~ended
+        new_org = torch.where(alive[:, None], pos, org)
+        new_dir = torch.where(alive[:, None], next_dir, dirn)
+        return new_org, new_dir, throughput, radiance, alive
+
+    def whole_bounce(org, dirn, throughput, radiance, alive, ctx):
+        hit = isect.intersect(pack, org, dirn, T_MIN, alive=alive, kernel=kernel)
+        return shade_bounce(org, dirn, throughput, radiance, alive, hit, ctx)
+
+    bounces = 0
+    for depth in range(max_depth):
+        if not differentiable and not bool(alive.any()):
+            break
+        bounces += 1
+        if compact:
+            perm = torch.sort(_compaction_key(org, dirn, alive), stable=True).indices
+            org, dirn = org[perm], dirn[perm]
+            throughput, radiance = throughput[perm], radiance[perm]
+            alive, src = alive[perm], src[perm]
+            pixel, sample = pixel[perm], sample[perm]
+        ctx = vrng.Ctx(pixel=pixel, sample=sample, bounce=depth, seed=rng_ctx.seed)
+        state = (org, dirn, throughput, radiance, alive)
+        if differentiable and remat == "full":
+            # the counter-based RNG draws no torch random numbers: nothing
+            # to save for the recompute
+            out = ckpt.checkpoint(whole_bounce, *state, ctx, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            hit = isect.intersect(pack, org, dirn, T_MIN, alive=alive, kernel=kernel)
+            if differentiable and remat == "hits":
+                out = ckpt.checkpoint(shade_bounce, *state, hit, ctx, use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                out = shade_bounce(*state, hit, ctx)
+        org, dirn, throughput, radiance, alive = out
+    if stats is not None:
+        stats["bounces"] = bounces
+    if compact:
+        # scatter back to the caller's lane order
+        radiance = torch.zeros_like(radiance).index_copy(0, src, radiance)
+    return radiance

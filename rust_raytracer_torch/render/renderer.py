@@ -1,26 +1,42 @@
 """Render orchestration (port of rust_raytracer_tpu/render/renderer.py:
-`Renderer.__init__`, `render`, `render_pool`).
+`Renderer.__init__`, `render`, `render_pool`, `render_batched`).
 
-The scene compiles once onto the given device; `render(mode="pool")` runs
-the persistent ray pool (render/pool.py) and returns a Film.  The batch
-schedule (`mode="batch"`) is not ported yet.
+The scene compiles once onto the given device.  `render(mode="pool")` runs
+the persistent ray pool (render/pool.py); `render(mode="batch")` traces the
+flattened (pixel, sample) grid in fixed-size batches through
+`integrator.trace`.  Both return a Film.  Because the RNG is keyed by
+(pixel, sample, bounce), the two schedules trace the same paths; they
+differ only in the order of each pixel's sum.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
-from rust_raytracer_tpu.scene import graph as sgraph
-
+from ..core import rng as vrng
 from ..ops import intersect as isect
 from ..scene import compiler as scompiler
+from ..scene import graph as sgraph
 from . import camera as cam
 from . import film as filmmod
+from . import integrator
 from . import pool as poolmod
 
-# Default number of lanes in the ray pool.
+# Default number of lanes in the ray pool, and of lanes per batch.
 DEFAULT_BATCH = 1 << 18
+
+MODES = ("pool", "batch")
+
+
+@dataclasses.dataclass
+class BatchMetrics:
+    """Counters of one batch render: batches traced and bounces traced in
+    all (a batch stops when its last path ends or at max_depth)."""
+    batches: int = 0
+    bounces: int = 0
 
 
 class Renderer:
@@ -34,11 +50,12 @@ class Renderer:
         *,
         device,
     ):
-        """kernel: "auto" or "bvh8" — the exact BVH8 traversal; "wavefront"
+        """kernel: the triangle traversal (ops/intersect.py KERNELS):
+        "auto" — the exact BVH8 walk, or the exact threaded walk where the
+        BVH8 kernel cannot run the scene; "bvh8"; "threaded"; "wavefront"
         — the cull -> compact -> MT pipeline (approximate when a packet
         overflows a cap; PoolMetrics.overflow counts them).  CUDA kernels
-        for a CUDA device, their plain versions for the CPU.  "threaded" is
-        not ported yet and raises NotImplementedError."""
+        for a CUDA device, their plain versions for the CPU."""
         isect.check_kernel(kernel)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -55,12 +72,16 @@ class Renderer:
                 "scenes with volumes are not ported yet (ROADMAP Queue 1, volumes)")
 
     def render(self, spp: Optional[int] = None, mode: str = "pool",
-               metrics: Optional[poolmod.PoolMetrics] = None) -> filmmod.Film:
-        """Render the full image with the persistent ray pool."""
-        if mode != "pool":
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP Queue 1, batch mode)")
-        return self.render_pool(spp=spp, metrics=metrics)
+               metrics: Union[poolmod.PoolMetrics, BatchMetrics, None] = None
+               ) -> filmmod.Film:
+        """Render the full image: mode="pool", the persistent ray pool, or
+        mode="batch", the bounded-loop schedule.  `metrics`, if given (a
+        PoolMetrics or a BatchMetrics), records the schedule's counters."""
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
+        if mode == "pool":
+            return self.render_pool(spp=spp, metrics=metrics)
+        return self.render_batched(spp=spp, metrics=metrics)
 
     def render_pool(self, spp: Optional[int] = None,
                     metrics: Optional[poolmod.PoolMetrics] = None) -> filmmod.Film:
@@ -74,6 +95,51 @@ class Renderer:
             self.pack, self.static, camera, n_pixels, total_spp, n_lanes,
             self.device, seed=self.seed, metrics=metrics, kernel=self.kernel,
         )
+        film = filmmod.Film(w, h)
+        film.add_samples(accum.reshape(h, w, 3), total_spp)
+        return film
+
+    def trace_batch(self, px, py, sample_id, stats: Optional[dict] = None) -> torch.Tensor:
+        """Radiance (N, 3) of one sample per lane: camera rays for pixels
+        (px, py) and sample ids, traced to max_depth (int64 tensors on the
+        renderer's device); `stats` as integrator.trace takes it."""
+        camera = self.camera
+        ctx = vrng.Ctx(pixel=py * camera.image_width + px, sample=sample_id,
+                       bounce=0, seed=self.seed)
+        org, dirn = camera.generate_rays(px, py, sample_id, ctx)
+        return integrator.trace(self.pack, self.static, org, dirn, ctx,
+                                camera.max_depth, camera.light_bias, kernel=self.kernel,
+                                stats=stats)
+
+    def render_batched(self, spp: Optional[int] = None,
+                       metrics: Optional[BatchMetrics] = None) -> filmmod.Film:
+        """Render the full image: the flattened (pixel, sample) grid,
+        pixel-major, is traced in batches of `batch_size` lanes (the tail
+        batch padded by wrapping, its padded lanes zeroed), and each batch's
+        radiance is summed per pixel on the host in float64, in lane order
+        (np.bincount), so the image does not depend on the batch size."""
+        camera = self.camera
+        w, h = camera.image_width, camera.image_height
+        total_spp = camera.actual_spp if spp is None else spp
+        n_pixels = w * h
+        total = n_pixels * total_spp
+        batch = min(self.batch_size, total)
+
+        accum = np.zeros((n_pixels, 3), np.float64)
+        for start in range(0, total, batch):
+            lane = start + np.arange(batch)
+            flat = lane % total
+            pix = flat // total_spp
+            smp = flat % total_spp
+            ids = torch.from_numpy(np.stack([pix % w, pix // w, smp])).to(self.device)
+            stats = {}
+            rad = self.trace_batch(ids[0], ids[1], ids[2], stats).cpu().numpy()
+            if metrics is not None:
+                metrics.batches += 1
+                metrics.bounces += stats["bounces"]
+            rad[lane >= total] = 0.0
+            for c in range(3):
+                accum[:, c] += np.bincount(pix, weights=rad[:, c], minlength=n_pixels)
         film = filmmod.Film(w, h)
         film.add_samples(accum.reshape(h, w, 3), total_spp)
         return film

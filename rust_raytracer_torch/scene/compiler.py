@@ -4,9 +4,11 @@ Source: `rust_raytracer_tpu/scene/compiler.py` (the JAX package).  This is
 the same numpy code with the `jnp` wrapping removed, so the port compiles
 scenes without importing JAX: transforms are baked into world-space
 primitives, all meshes merge into one triangle soup under one BVH (threaded
-binary + BVH8 collapse, both from the shared `scene/bvh_builder.py` and
+binary + BVH8 collapse, from the port's copies `scene/bvh_builder.py` and
 `scene/bvh8.py`), materials dedupe into a table, the texture DAG becomes a
 static program (ops/texture.py) and the lights a static (kind, index) list.
+Scenes are built with the port's own `scene/graph.py` (e.g. through its
+`models.build`); a scene of another package's graph classes is refused.
 
 The two compilers must stay leaf-for-leaf equal:
 `tests/test_torch_scene.py::test_compile_scene_leaves_equal_jax` compiles
@@ -21,9 +23,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from rust_raytracer_tpu.scene import bvh8, bvh_builder, graph
-
 from ..ops import texture as tex
+from . import bvh8, bvh_builder, graph
 from . import pack as sp
 
 # Triangles per BVH leaf == per cluster row block (the reference's
@@ -548,6 +549,12 @@ def compile_numpy(scene: graph.SceneDef):
     name (scene/pack.LEAF_FIELDS) to a numpy array of its device dtype,
     `tex_data` is the tuple of texture tables, `static` the SceneStatic.
     """
+    if not isinstance(scene, graph.SceneDef):
+        raise TypeError(
+            f"expected a {graph.SceneDef.__module__}.SceneDef, got "
+            f"{type(scene).__module__}.{type(scene).__qualname__}: build scenes with "
+            "the port's own scene graph (rust_raytracer_torch.scene.graph, "
+            "rust_raytracer_torch.models)")
     np_dtype = np.dtype(np.float32)
     c = _Compiler(dtype=np_dtype)
     c.compile_object(scene.world, np.eye(4))

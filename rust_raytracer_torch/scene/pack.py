@@ -2,11 +2,10 @@
 
 Port of rust_raytracer_tpu/scene/pack.py: the same fields (see that module
 for the meaning of each table), as a NamedTuple of torch tensors, except the
-tables no port traversal reads (HOST_ONLY_FIELDS: the threaded-BVH rows,
-and `tri_geom` / `bvh8_aabb`, whose content the kernels read repacked), plus
-the tables the CUDA traversal kernels read (ops/bvh8.py; the wavefront MT
-kernel of ops/wavefront.py reads `tri_rows`), derived once when the pack is
-built:
+reference layouts that the kernels read repacked (HOST_ONLY_FIELDS:
+`bvh_rows`, `tri_geom`, `bvh8_aabb`), plus the tables the CUDA traversal
+kernels read (ops/bvh8.py, ops/threaded.py; the wavefront MT kernel of
+ops/wavefront.py reads `tri_rows`), derived once when the pack is built:
 
   bvh8_box   (n8, 8, 6) f32   child AABBs, lanes 0-5 of the reference's
                               (n8, 8, 128) `bvh8_aabb`
@@ -14,8 +13,15 @@ built:
                               triangle slot: v0(0:3) e1(3:6) e2(6:9)
                               hit_back(9) 0(10:12) — rows 0-9 of the
                               reference's `tri_geom`, triangle-major
+  bvh_node_rows (M, 8) f32    one 32-byte row per threaded-BVH node: the
+                              content of the reference's (M, 16) `bvh_rows`
+                              (node_rows below)
   bvh8_depth int              levels of internal BVH8 nodes on the longest
                               root-to-leaf path (bounds the kernel's stack)
+
+The float DEVICE_FIELDS are the scene's parameters for the differentiable
+trace (`ScenePack.with_grad`); the derived kernel tables are not: the
+traversal is detached.
 
 The wavefront pipeline reads the `wf_*` cluster and supernode tables as the
 reference has them.  Material, primitive, light and volume ids are the
@@ -79,10 +85,9 @@ LEAF_FIELDS = (
     "tex_const", "background",
 )
 
-# Reference leaves the port reads nowhere: the threaded walk's rows (K3 is
-# not ported yet) and the reference layouts of the kernel tables.  They stay
-# in compile_numpy's output (held leaf-equal to the reference) but are not
-# moved to the device.
+# Reference layouts of the kernel tables, read only to derive the port's
+# own.  They stay in compile_numpy's output (held leaf-equal to the
+# reference) but are not moved to the device.
 HOST_ONLY_FIELDS = ("bvh_rows", "tri_geom", "bvh8_aabb")
 DEVICE_FIELDS = tuple(f for f in LEAF_FIELDS if f not in HOST_ONLY_FIELDS)
 
@@ -90,7 +95,7 @@ _PackBase = NamedTuple(
     "_PackBase",
     [(f, Any) for f in DEVICE_FIELDS]
     + [("tex_data", Tuple[Any, ...]), ("bvh8_box", Any), ("tri_rows", Any),
-       ("bvh8_depth", int)],
+       ("bvh_node_rows", Any), ("bvh8_depth", int)],
 )
 
 
@@ -105,11 +110,23 @@ class ScenePack(_PackBase):
             tex_data=tuple(t.to(device) for t in self.tex_data),
             bvh8_box=self.bvh8_box.to(device),
             tri_rows=self.tri_rows.to(device),
+            bvh_node_rows=self.bvh_node_rows.to(device),
         )
 
     @property
     def device(self) -> torch.device:
         return self.tri_v0.device
+
+    def float_fields(self) -> Tuple[str, ...]:
+        """The DEVICE_FIELDS that hold floats: the scene's parameters."""
+        return tuple(f for f in DEVICE_FIELDS if getattr(self, f).is_floating_point())
+
+    def with_grad(self) -> "ScenePack":
+        """The same pack with every float DEVICE_FIELD a leaf tensor that
+        requires grad (sharing storage with this pack), so that
+        `torch.autograd.grad(loss, [pack.sph_center, ...])` works."""
+        return self._replace(**{f: getattr(self, f).detach().requires_grad_(True)
+                                for f in self.float_fields()})
 
 
 def bvh8_tables(bvh8_aabb: np.ndarray, tri_geom: np.ndarray):
@@ -120,6 +137,26 @@ def bvh8_tables(bvh8_aabb: np.ndarray, tri_geom: np.ndarray):
     rows = np.zeros((nc * cl, 12), np.float32)
     rows[:, 0:10] = tri_geom[:, 0:10, :].transpose(0, 2, 1).reshape(nc * cl, 10)
     return box, rows
+
+
+def node_rows(bvh_min, bvh_max, hit_link, miss_link, leaf_start,
+              cluster: int = 128) -> np.ndarray:
+    """The threaded kernel's (M, 8) f32 node table from the threaded BVH's
+    columns (ops/threaded.py): min xyz, max xyz, then two int32 stored bit
+    for bit, the miss link and the hit link of an internal node or
+    -(cluster + 1) of a leaf.  Raises if a leaf's hit link differs from its
+    miss link, which the encoding relies on."""
+    m = bvh_min.shape[0]
+    leaf = np.asarray(leaf_start) >= 0
+    if np.any(np.asarray(hit_link)[leaf] != np.asarray(miss_link)[leaf]):
+        raise ValueError("a leaf's hit link differs from its miss link")
+    rows = np.zeros((m, 8), np.float32)
+    rows[:, 0:3] = bvh_min
+    rows[:, 3:6] = bvh_max
+    links = rows.view(np.int32)
+    links[:, 6] = miss_link
+    links[:, 7] = np.where(leaf, -(np.asarray(leaf_start) // cluster) - 1, hit_link)
+    return rows
 
 
 def bvh8_depth(child8: np.ndarray) -> int:
@@ -148,10 +185,13 @@ def from_numpy(leaves: Dict[str, np.ndarray], tex_data: tuple, device) -> SceneP
                for f in DEVICE_FIELDS}
     box, rows = bvh8_tables(np.asarray(leaves["bvh8_aabb"]),
                             np.asarray(leaves["tri_geom"]))
+    nodes = node_rows(*(np.asarray(leaves[f]) for f in (
+        "bvh_min", "bvh_max", "bvh_hit_link", "bvh_miss_link", "bvh_leaf_start")))
     return ScenePack(
         **tensors,
         tex_data=tuple(torch.tensor(np.asarray(d), device=device) for d in tex_data),
         bvh8_box=torch.from_numpy(box).to(device),
         tri_rows=torch.from_numpy(rows).to(device),
+        bvh_node_rows=torch.from_numpy(nodes).to(device),
         bvh8_depth=bvh8_depth(np.asarray(leaves["bvh8_child"])),
     )

@@ -23,14 +23,17 @@ from rust_raytracer_torch.ops import intersect as tisect
 from rust_raytracer_torch.render import camera as tcam
 from rust_raytracer_torch.render import renderer as trenderer
 
-from test_torch_scene import mini_dragon_scene, port_pack_from_jax, soup_scene, texture_scene
+from rust_raytracer_torch.scene import graph as tg
+
+from test_torch_scene import (jax_graph, mini_dragon_scene, port_pack_from_jax, soup_scene,
+                              texture_scene)
 
 torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
 def soup():
-    jp, _ = jcompiler.compile_scene(soup_scene())
+    jp, _ = jcompiler.compile_scene(soup_scene(jax_graph()))
     return jp, port_pack_from_jax(jp)
 
 
@@ -108,7 +111,7 @@ def test_bvh8_wrapper_rejects_bad_inputs(soup):
 def _scene_rays(name, n_primary=768, n_bounce=768):
     """(JAX pack, port pack, org, dirn): primary camera rays plus a bounce
     wavefront from the primary hits (a few aimed at the sun)."""
-    scene = {"mini_dragon": mini_dragon_scene, "texture": texture_scene}[name]()
+    scene = {"mini_dragon": mini_dragon_scene, "texture": texture_scene}[name](jax_graph())
     jp, _ = jcompiler.compile_scene(scene)
     tp = port_pack_from_jax(jp)
     sc = cfg.merge_scene_config(scene.config, {"output_width": 32})
@@ -167,18 +170,27 @@ def test_intersect_and_hit_attributes_match(name):
 
 
 def test_unported_kernels_raise():
-    for kernel in ("auto", "bvh8", "wavefront"):
+    """Every traversal is ported: the port's kernel names are accepted, the
+    reference's "pallas" and "jnp" are unknown names here.  What is still
+    unported, volumes, raises NotImplementedError in `intersect`."""
+    for kernel in ("auto", "bvh8", "threaded", "wavefront"):
         assert tisect.check_kernel(kernel) is None  # ported: accepted
-    with pytest.raises(NotImplementedError, match="K3"):
-        tisect.check_kernel("threaded")
-    with pytest.raises(ValueError):
-        tisect.check_kernel("pallas")
+    for kernel in ("pallas", "jnp"):
+        with pytest.raises(ValueError, match="unknown kernel"):
+            tisect.check_kernel(kernel)
+    from rust_raytracer_torch import models as tmodels
+    from rust_raytracer_torch.scene import compiler as tcompiler
+
+    pack, _ = tcompiler.compile_scene(tmodels.build("cornell_smoke"), "cpu")
+    ray = torch.zeros((1, 3)), torch.ones((1, 3))
+    with pytest.raises(NotImplementedError, match="volumes"):
+        tisect.intersect(pack, *ray, 1e-3)
 
 
 def test_renderer_cuda_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-fallback rule is moot here")
-    scene = mini_dragon_scene()
+    scene = mini_dragon_scene(tg)
     cam = tcam.camera_from_config(
         cfg.merge_scene_config(scene.config, {"output_width": 8}), cfg.RenderConfig())
     with pytest.raises(RuntimeError, match="cuda"):
@@ -200,4 +212,5 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
         assert "-fmad=false" in cmd and "--use_fast_math" not in cmd
         assert cmd[-1] == str(src) and "-c" in cmd
         built.add(src.name)
-    assert {"bvh8_traverse.cu", "wf_cull.cu", "wf_compact.cu", "wf_mt.cu"} <= built
+    assert {"bvh8_traverse.cu", "threaded_traverse.cu", "wf_cull.cu", "wf_compact.cu",
+            "wf_mt.cu"} <= built

@@ -18,17 +18,19 @@ import numpy as np
 import pytest
 import torch
 
-from rust_raytracer_tpu import models
 from rust_raytracer_tpu.render import film as jfilm
 from rust_raytracer_tpu.render import pool as jpool
 from rust_raytracer_tpu.render.renderer import Renderer as JRenderer
 from rust_raytracer_tpu.utils import config as cfg
+from rust_raytracer_torch import models as tmodels
 from rust_raytracer_torch.render import camera as tcam
 from rust_raytracer_torch.render import film as tfilm
 from rust_raytracer_torch.render import pool as tpool
 from rust_raytracer_torch.render.renderer import Renderer as TRenderer
 
-from test_torch_scene import mini_dragon_scene, port_pack_from_jax, port_static
+from rust_raytracer_torch.scene import graph as tg
+
+from test_torch_scene import jax_graph, mini_dragon_scene, port_pack_from_jax, port_static
 
 torch.set_num_threads(2)
 
@@ -38,12 +40,13 @@ LANES = 1024
 
 @pytest.fixture(scope="module")
 def mini():
-    """One JAX renderer (kernel="jnp") and the port's camera for the mini
-    scene at 32x32, 4 spp, depth 8."""
-    scene = mini_dragon_scene()
+    """The port's mini scene, one JAX renderer (kernel="jnp") of the JAX
+    package's and the port's camera, at 32x32, 4 spp, depth 8."""
+    scene = mini_dragon_scene(tg)
     sc = cfg.merge_scene_config(scene.config, {"output_width": 32})
     rc = cfg.RenderConfig(samples_per_pixel=4, max_depth=8)
-    jr = JRenderer(scene, cfg.make_camera(sc, rc), batch_size=LANES, kernel="jnp")
+    jr = JRenderer(mini_dragon_scene(jax_graph()), cfg.make_camera(sc, rc), batch_size=LANES,
+                   kernel="jnp")
     return scene, jr, tcam.camera_from_config(sc, rc)
 
 
@@ -119,7 +122,7 @@ def test_cornell_pool_render_matches_golden():
     1, 2 and 4 threads and 2^14 or 2^16 lanes.  Required: at most 48 pixels
     outside 2e-4, each within 15 / 49 + 2e-4, and mean |d| / mean <= 1e-3
     (ROADMAP Queue 3)."""
-    scene = models.build("cornell")
+    scene = tmodels.build("cornell")
     sc = cfg.merge_scene_config(scene.config, {"output_width": 64})
     cam = tcam.camera_from_config(sc, cfg.RenderConfig(samples_per_pixel=49, max_depth=20))
     got = TRenderer(scene, cam, batch_size=1 << 16, device="cpu").render(mode="pool").hdr()
@@ -135,14 +138,19 @@ def test_cornell_pool_render_matches_golden():
 
 
 def test_unported_modes_raise(mini):
+    """What is still unported raises: scenes with volumes.  Both render
+    modes and every port kernel are accepted; the reference's "pallas"
+    kernel and an unknown mode are refused by name."""
     scene, _, cam = mini
-    with pytest.raises(NotImplementedError, match="batch"):
-        TRenderer(scene, cam, device="cpu").render(mode="batch")
+    r = TRenderer(scene, cam, kernel="threaded", device="cpu")
+    assert r.kernel == "threaded"
     assert TRenderer(scene, cam, kernel="wavefront", device="cpu").kernel == "wavefront"
-    with pytest.raises(NotImplementedError, match="K3"):
-        TRenderer(scene, cam, kernel="threaded", device="cpu")
+    with pytest.raises(ValueError, match="unknown mode"):
+        r.render(mode="tiles")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        TRenderer(scene, cam, kernel="pallas", device="cpu")
     with pytest.raises(NotImplementedError, match="volumes"):
-        TRenderer(models.build("cornell_smoke"), cam, device="cpu")
+        TRenderer(tmodels.build("cornell_smoke"), cam, device="cpu")
 
 
 def _hdr():

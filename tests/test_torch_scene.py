@@ -1,13 +1,19 @@
-"""The port's JAX-free scene compiler against the JAX package's compiler:
-every ScenePack leaf equal in shape, dtype and value, SceneStatic equal;
-the BVH8 kernel tables against the reference layout; and a subprocess that
-renders with `jax` blocked.
+"""The port's JAX-free scene front end against the JAX package's: the two
+compilers (with the port's own copies of the graph, BVH builder, BVH8
+collapse, native builder and models) give equal ScenePack leaves in shape,
+dtype and value and an equal SceneStatic; the kernel tables against the
+reference layouts; a JAX-package scene refused by the port; and a
+subprocess that renders with `jax` and `rust_raytracer_tpu` blocked.
 
-The scene builders here (mini cornell_dragon, texture scene, triangle soup)
-are shared by the other tests/test_torch_*.py files; this module imports
-the JAX package's jax-based modules only inside tests, so the jax-blocked
-subprocess can import the builders."""
+Each scene is built once in each package: the builtins through each
+package's `models.build`, the hand-built helpers here (mini cornell_dragon,
+texture scene, triangle soup; shared by the other tests/test_torch_*.py
+files) from the graph module they are given.  This module imports the JAX
+package only inside functions, so the blocked subprocess can import the
+helpers."""
 import dataclasses
+import functools
+import importlib
 import os
 import subprocess
 import sys
@@ -17,12 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from rust_raytracer_tpu import models
-from rust_raytracer_tpu.models import builtin
-from rust_raytracer_tpu.scene import graph as g
-from rust_raytracer_tpu.utils import procgen
 from rust_raytracer_torch.ops import bvh8 as tbvh8
 from rust_raytracer_torch.scene import compiler as tcompiler
+from rust_raytracer_torch.scene import graph as tg
 from rust_raytracer_torch.scene import pack as tpack
 
 torch.set_num_threads(2)
@@ -30,11 +33,26 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def jax_graph():
+    """The JAX package's scene graph module."""
+    from rust_raytracer_tpu.scene import graph
+
+    return graph
+
+
+def package(g, name):
+    """Module `name` (e.g. "models.builtin") of the package that graph
+    module `g` belongs to."""
+    return importlib.import_module(f"{g.__name__.split('.')[0]}.{name}")
+
+
 # ---------------------------------------------------------------- scenes
 
-def mini_dragon_scene():
+def mini_dragon_scene(g):
     """cornell_dragon cut to size: the Cornell shell, floor and light of
-    models/builtin.py:265-276 around a 960-triangle torus knot."""
+    models/builtin.py:265-276 around a 960-triangle torus knot, built with
+    graph module `g`."""
+    builtin, procgen = package(g, "models.builtin"), package(g, "utils.procgen")
     mat_white, walls = builtin._cornell_shell()
     mat_light = g.Emissive(g.Constant((15.0, 15.0, 15.0)))
     mat_gloss = g.Glossy(g.Constant((0.73, 0.73, 0.73)), g.Constant(0.0), 1.5)
@@ -51,11 +69,11 @@ def _image(h, w, seed):
     return np.random.default_rng(seed).uniform(size=(h, w, 3)).astype(np.float32)
 
 
-def texture_scene():
+def texture_scene(g):
     """Every texture class of scene/graph.py (Checker, CheckerSolid, Image,
     Lerp, NoiseSolid(Perlin(seed=7)) with both maps, Channel, UvDebug), a
     normal map, every surface material, a textured uv mesh, sphere / plane /
-    proxy / sky / sun lights."""
+    proxy / sky / sun lights; built with graph module `g`."""
     c = g.Constant
     noise = g.NoiseSolid(g.Perlin(seed=7), scale=2.0)
     turb = g.NoiseSolid(g.Perlin(seed=7), scale=0.5, samples=5, map="turbulence")
@@ -100,8 +118,9 @@ def texture_scene():
     )
 
 
-def soup_scene():
-    """The random triangle soup of tests/test_pallas.py."""
+def soup_scene(g):
+    """The random triangle soup of tests/test_pallas.py, built with graph
+    module `g`."""
     rng = np.random.default_rng(11)
     n_tris = 700
     centers = rng.uniform(-1, 1, (n_tris, 3))
@@ -116,11 +135,17 @@ def soup_scene():
     return g.SceneDef(world=g.Group([mesh]), lights=[])
 
 
+def builtin_scene(name, g):
+    """Builtin scene `name` from the models registry of `g`'s package."""
+    return package(g, "models").build(name)
+
+
+# name -> builder taking a graph module
 SCENES = {
-    "test": lambda: models.build("test"),
-    "cornell": lambda: models.build("cornell"),
-    "cornell_smoke": lambda: models.build("cornell_smoke"),
-    "tonemap_test": lambda: models.build("tonemap_test"),
+    "test": functools.partial(builtin_scene, "test"),
+    "cornell": functools.partial(builtin_scene, "cornell"),
+    "cornell_smoke": functools.partial(builtin_scene, "cornell_smoke"),
+    "tonemap_test": functools.partial(builtin_scene, "tonemap_test"),
     "soup": soup_scene,
     "texture": texture_scene,
     "mini_dragon": mini_dragon_scene,
@@ -159,14 +184,14 @@ def test_pack_fields_match_reference():
     assert len(tpack.LEAF_FIELDS) == len(want) - 1
 
 
-@pytest.mark.parametrize("name", sorted(SCENES))
-def test_compile_scene_leaves_equal_jax(name):
+def assert_compilers_equal(jax_scene, port_scene):
+    """Both compilers on the same scene, built once in each package: every
+    leaf equal in shape, dtype and value, SceneStatic equal."""
     from rust_raytracer_tpu.scene import compiler as jcompiler
 
-    scene = SCENES[name]()
-    jp, js = jcompiler.compile_scene(scene)
+    jp, js = jcompiler.compile_scene(jax_scene)
     want, want_tex = jax_leaves(jp)
-    got, got_tex, static = tcompiler.compile_numpy(scene)
+    got, got_tex, static = tcompiler.compile_numpy(port_scene)
     assert set(got) == set(want)
     for k in want:
         assert got[k].shape == want[k].shape, k
@@ -181,11 +206,39 @@ def test_compile_scene_leaves_equal_jax(name):
             == [dataclasses.astuple(n) for n in js.tex_program])
 
 
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_compile_scene_leaves_equal_jax(name):
+    assert_compilers_equal(SCENES[name](jax_graph()), SCENES[name](tg))
+
+
+@pytest.mark.parametrize("name", ["cornell", "test", "cornell_dragon"])
+def test_builtins_leaves_equal_jax(name, monkeypatch):
+    """The builtins the port's tests and smoke run use, through each
+    package's own `models.build`: compiled leaves equal.  cornell_dragon
+    with its torus knot cut to 40 x 12 rings in both packages (the BVH8
+    collapse and the native SAH builder run on it)."""
+    for g in (jax_graph(), tg):
+        procgen = package(g, "utils.procgen")
+        monkeypatch.setattr(procgen, "torus_knot_mesh", functools.partial(
+            procgen.torus_knot_mesh, rings=40, segments=12))
+    jax_scene, port_scene = (builtin_scene(name, g) for g in (jax_graph(), tg))
+    assert_compilers_equal(jax_scene, port_scene)
+
+
+def test_jax_scene_def_raises_type_error():
+    """A SceneDef of the JAX package's graph is refused with a TypeError
+    that names the port's graph, not compiled to something else."""
+    with pytest.raises(TypeError, match="rust_raytracer_torch.scene.graph"):
+        tcompiler.compile_numpy(builtin_scene("cornell", jax_graph()))
+    with pytest.raises(TypeError, match="SceneDef"):
+        tcompiler.compile_scene(object(), "cpu")
+
+
 @pytest.mark.parametrize("name", ["mini_dragon", "texture"])
 def test_from_numpy_round_trip(name):
     from rust_raytracer_tpu.scene import compiler as jcompiler
 
-    jp, _ = jcompiler.compile_scene(SCENES[name]())
+    jp, _ = jcompiler.compile_scene(SCENES[name](jax_graph()))
     leaves, tex_data = jax_leaves(jp)
     pack = tpack.from_numpy(leaves, tex_data, "cpu").to("cpu")
     assert pack.device == torch.device("cpu")
@@ -201,7 +254,7 @@ def test_from_numpy_round_trip(name):
 
 @pytest.mark.parametrize("name", ["mini_dragon", "soup"])
 def test_bvh8_kernel_tables(name):
-    leaves, _, _ = tcompiler.compile_numpy(SCENES[name]())
+    leaves, _, _ = tcompiler.compile_numpy(SCENES[name](tg))
     pack = tpack.from_numpy(leaves, (), "cpu")
     aabb8, child8 = leaves["bvh8_aabb"], leaves["bvh8_child"]
     np.testing.assert_array_equal(pack.bvh8_box.numpy(), aabb8[:, :, 0:6])
@@ -219,12 +272,33 @@ def test_bvh8_kernel_tables(name):
     assert 8 * pack.bvh8_depth + 1 <= tbvh8.STACK
 
 
+@pytest.mark.parametrize("name", ["mini_dragon", "soup"])
+def test_threaded_node_rows(name):
+    """The threaded kernel's 32-byte node rows hold the reference's
+    (M, 16) `bvh_rows`: boxes bit for bit, the miss link, and the hit link
+    or -(cluster + 1) at a leaf, whose hit link is its miss link."""
+    leaves, _, _ = tcompiler.compile_numpy(SCENES[name](tg))
+    rows = tpack.from_numpy(leaves, (), "cpu").bvh_node_rows.numpy()
+    ref = leaves["bvh_rows"]
+    assert rows.shape == (ref.shape[0], 8) and rows.dtype == np.float32
+    np.testing.assert_array_equal(rows[:, 0:6], ref[:, 0:6])
+    links = rows.view(np.int32)
+    leaf = ref[:, 8] > 0
+    assert leaf.any() and (~leaf).any()
+    np.testing.assert_array_equal(links[:, 6], ref[:, 7].astype(np.int32))
+    np.testing.assert_array_equal(ref[leaf, 6], ref[leaf, 7])
+    np.testing.assert_array_equal(links[~leaf, 7], ref[~leaf, 6].astype(np.int32))
+    np.testing.assert_array_equal(links[leaf, 7], -ref[leaf, 8].astype(np.int32))
+
+
 def test_port_runs_without_jax():
-    """Import every module of rust_raytracer_torch with `jax` blocked, then
-    compile the mini scene and render a 16x16 frame on the CPU."""
+    """Import every module of rust_raytracer_torch with `jax` and the JAX
+    package blocked, then build the mini scene with the port's own graph,
+    config and models, and render a 16x16 frame on the CPU in both modes."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["rust_raytracer_tpu"] = None
         sys.path.insert(0, {REPO!r})
         sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})
         import numpy as np, torch
@@ -232,18 +306,23 @@ def test_port_runs_without_jax():
         import rust_raytracer_torch
         for m in pkgutil.walk_packages(rust_raytracer_torch.__path__, "rust_raytracer_torch."):
             importlib.import_module(m.name)
-        from rust_raytracer_tpu.scene import graph
-        from rust_raytracer_tpu.utils import config as cfg
+        from rust_raytracer_torch import models
+        from rust_raytracer_torch.scene import graph
+        from rust_raytracer_torch.utils import config as cfg
         from rust_raytracer_torch.render.camera import camera_from_config
         from rust_raytracer_torch.render.renderer import Renderer
         from test_torch_scene import mini_dragon_scene
-        scene = mini_dragon_scene()
+        assert "cornell_dragon" in models.names()
+        scene = mini_dragon_scene(graph)
         sc = cfg.merge_scene_config(scene.config, {{"output_width": 16}})
         cam = camera_from_config(sc, cfg.RenderConfig(samples_per_pixel=1, max_depth=4))
-        img = Renderer(scene, cam, batch_size=256, device="cpu").render().hdr()
-        assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0
-        assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items()
-                       if v is not None)
+        r = Renderer(scene, cam, batch_size=256, device="cpu")
+        for mode in ("pool", "batch"):
+            img = r.render(mode=mode).hdr()
+            assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0
+        loaded = [k for k, v in sys.modules.items() if v is not None and (
+            k.split(".")[0] in ("jax", "rust_raytracer_tpu"))]
+        assert not loaded, loaded
         print("ok", img.mean())
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

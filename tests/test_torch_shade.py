@@ -20,7 +20,8 @@ from rust_raytracer_torch.ops import shade as tshade
 from rust_raytracer_torch.ops import texture as ttex
 
 from test_torch_intersect import _scene_rays
-from test_torch_scene import mini_dragon_scene, port_pack_from_jax, port_static, texture_scene
+from test_torch_scene import (jax_graph, mini_dragon_scene, port_pack_from_jax, port_static,
+                              texture_scene)
 
 torch.set_num_threads(2)
 
@@ -38,7 +39,7 @@ def _close(got, want, msg=""):
 
 @pytest.fixture(scope="module")
 def texture_pack():
-    jp, js = jcompiler.compile_scene(texture_scene())
+    jp, js = jcompiler.compile_scene(texture_scene(jax_graph()))
     return jp, js, port_pack_from_jax(jp), port_static(js)
 
 
@@ -93,7 +94,7 @@ def test_lights_pdf_and_sample(texture_pack):
 def test_shade_on_fixed_hits(name):
     jp, tp, org, dirn = _scene_rays(name)
     js = jcompiler.compile_scene(
-        {"mini_dragon": mini_dragon_scene, "texture": texture_scene}[name]())[1]
+        {"mini_dragon": mini_dragon_scene, "texture": texture_scene}[name](jax_graph()))[1]
     ts = port_static(js)
     n = org.shape[0]
     jctx, tctx = _ctxs(n)

@@ -43,6 +43,7 @@ from rust_raytracer_torch.ops import wavefront as twf
 from rust_raytracer_torch.render import camera as tcam
 from rust_raytracer_torch.render import pool as tpool
 from rust_raytracer_torch.render.renderer import Renderer as TRenderer
+from rust_raytracer_torch.scene import graph as tg
 
 from test_torch_scene import mini_dragon_scene, port_pack_from_jax, soup_scene
 
@@ -85,7 +86,7 @@ def packs():
     out = {}
     for name, scene in (("soup", soup_scene), ("mini_dragon", mini_dragon_scene),
                         ("multi", _big_soup)):
-        jp, _ = jcompiler.compile_scene(scene())
+        jp, _ = jcompiler.compile_scene(scene(g) if scene is not _big_soup else scene())
         tp = port_pack_from_jax(jp)
         if name == "multi":
             jp, tp = _one_cluster_supernodes(jp, tp)
@@ -486,7 +487,7 @@ def test_pool_render_wavefront_matches_bvh8_and_jax():
     kernel="wavefront" on the CPU: no overflow (12 clusters in one
     supernode), the port's BVH8 render's image, and the JAX exact render's
     within test_torch_render.py's bounds."""
-    scene = mini_dragon_scene()
+    scene = mini_dragon_scene(tg)
     sc = cfg.merge_scene_config(scene.config, {"output_width": 32})
     rc = cfg.RenderConfig(samples_per_pixel=4, max_depth=8)
     cam = tcam.camera_from_config(sc, rc)
@@ -499,7 +500,7 @@ def test_pool_render_wavefront_matches_bvh8_and_jax():
     assert metrics.overflow == 0 and metrics.total_packets == (lanes // 8) * metrics.steps
     exact = TRenderer(scene, cam, batch_size=lanes, kernel="auto", device="cpu")
     np.testing.assert_array_equal(got, exact.render(mode="pool").hdr())
-    want = JRenderer(scene, cfg.make_camera(sc, rc), batch_size=lanes,
+    want = JRenderer(mini_dragon_scene(g), cfg.make_camera(sc, rc), batch_size=lanes,
                      kernel="jnp").render(mode="pool").hdr()
     rel = np.abs(got - want).mean() / want.mean()
     close = np.isclose(got, want, rtol=1e-3, atol=1e-4).all(axis=-1).mean()
