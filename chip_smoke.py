@@ -31,6 +31,21 @@ gradients of every float scene table) with remat "none" and "hits", its
 rate and peak memory, its gradients against the BVH8 walk's; and a small
 gradient on the card against the same on the CPU.
 
+K1 and K3 test a leaf with the whole warp (rust_raytracer_torch/csrc/
+traverse_common.cuh:warp_leaf_test).  Beside each of
+their times the smoke prints the counts that design answers to, from the
+walks in torch ops (warps of 32 lanes in ray order): leaf visits, the warp
+leaf passes a per-thread 128-slot leaf loop would run and the share of
+lanes busy in them, the warps' loop iterations, and the cooperative
+test's equivalent (leaf visits x 4 / 128 passes).  Phase 1 prints K1's and
+K3's registers, local (stack and spill) bytes and shared bytes as the
+loaded module reports them (cudaFuncGetAttributes).
+
+A kernel's time is the mean over KERNEL_REPS back-to-back calls of its
+wrapper between two CUDA events, after a warm-up call (PLAIN_REPS for a
+plain version); the calls repeat the same inputs, so whatever of them
+fits in the 50 MB L2 stays there.
+
 Each kernel's bound (the least time the card could take for the work) is
 the larger of its operations over 67 TFLOP/s (f32, outside the tensor
 cores) and its bytes over 3.35 TB/s (NVIDIA H100 SXM data sheet), from
@@ -48,7 +63,6 @@ top of this script and `rust_raytracer_tpu` is checked at the end.
 """
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -67,6 +81,7 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 SLAB_OPS, MT_OPS = 25, 56      # operations of one slab test, one Möller–Trumbore test
 RAY_BYTES, HIT_BYTES = 28, 8   # org, dirn, t_max in; t, slot out
 CLUSTER_BYTES = 128 * 48       # one cluster's triangle rows
+KERNEL_REPS, PLAIN_REPS = 50, 3
 
 
 def log(*a):
@@ -78,6 +93,20 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def leaf_work(counts, n):
+    """The counts the leaf-test design answers to (warps of 32 lanes in ray
+    order): leaf visits; the warp leaf passes a per-thread 128-slot leaf
+    loop runs (iterations in which any lane of the warp holds a leaf) and
+    the share of lanes busy in them; the warps' loop iterations; and the
+    warp-cooperative test's equivalent, leaf visits x 4 / 128 passes."""
+    warps = -(-n // 32)
+    lv, wp = counts["leaf_visits"], counts["warp_leaf_passes"]
+    return (f"leaf visits {lv}, warp leaf passes {wp} ({wp / warps:.2f} a warp), leaf "
+            f"efficiency {lv / max(32 * wp, 1):.1%}, loop iterations "
+            f"{counts['warp_steps'] / warps:.1f} a warp; cooperative leaf test "
+            f"{lv * 4 / 128:.1f} pass equivalents ({lv * 4 / 128 / warps:.2f} a warp)")
 
 
 def make_rays(camera, n, device):
@@ -140,17 +169,18 @@ def compare(pack, org, dirn, tag, t_max=None, quiet=False):
     return max_err, agree, n_hit, (t_k, i_k)
 
 
-def time_ms(fn, reps=5):
+def time_ms(fn, reps=KERNEL_REPS):
+    """ms a call of `fn`: CUDA events around `reps` back-to-back calls
+    after a warm-up call, divided by `reps`."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def light_region(camera, corners):
@@ -428,7 +458,7 @@ def dense_parity(pack, org, dirn, t_max):
 
 def wf_times(pack, org, dirn, t_max, card):
     """Each wavefront kernel and its plain version on the same inputs
-    (median of 5, host clock around a synchronized call), and each kernel's
+    (time_ms: CUDA events around back-to-back calls), and each kernel's
     bound from what these inputs need: A slab-tests 8 rays against the 128
     cluster boxes of each live supernode slot; L2 reads each live slot's
     kept ids; MT tests 8 rays against the 128 triangles of each listed
@@ -464,15 +494,18 @@ def wf_times(pack, org, dirn, t_max, card):
     times = {
         "l1": (time_ms(lambda: wf.nearest_boxes(pack.wf_sn_lo, pack.wf_sn_hi, org, dirn,
                                                 t_max, k1)), None),
-        "wf_cull": (time_ms(lambda: wf.cull(*a_in)), time_ms(lambda: wf.cull_plain(*a_in))),
+        "wf_cull": (time_ms(lambda: wf.cull(*a_in)),
+                    time_ms(lambda: wf.cull_plain(*a_in), PLAIN_REPS)),
         "wf_compact": (time_ms(lambda: wf.compact(keys, counts, n1, k)),
-                       time_ms(lambda: wf.compact_plain(keys, counts, n1, k))),
-        "wf_mt": (time_ms(lambda: wf.mt(*mt_in)), time_ms(lambda: wf.mt_plain(*mt_in))),
+                       time_ms(lambda: wf.compact_plain(keys, counts, n1, k), PLAIN_REPS)),
+        "wf_mt": (time_ms(lambda: wf.mt(*mt_in)),
+                  time_ms(lambda: wf.mt_plain(*mt_in), PLAIN_REPS)),
     }
     log(f"time wavefront mid-render step x{org.shape[0]}: L1 (torch ops) "
         f"{times['l1'][0]:.3f} ms; " + "; ".join(
             f"{nm} kernel {times[nm][0]:.3f} ms, plain {times[nm][1]:.3f} ms"
-            for nm in ("wf_cull", "wf_compact", "wf_mt")) + f" (median of 5; {card})")
+            for nm in ("wf_cull", "wf_compact", "wf_mt"))
+        + f" (CUDA events, mean of {KERNEL_REPS} / plain {PLAIN_REPS} calls; {card})")
     log(f"wavefront counts: {n_pk} packets, live supernode slots {int(n1.sum())}, candidate "
         f"pairs {pairs}, distinct listed clusters {int(listed.unique().numel())}; bounds: "
         + "; ".join(f"{nm} {bounds[nm][0]:.4f} ms by {bounds[nm][1]} "
@@ -500,8 +533,11 @@ def bvh8_walk(pack, org, dirn, t_max):
     """The BVH8 kernel's walk in torch ops (csrc/bvh8_traverse.cu: a stack
     per ray, children pushed 7 -> 0, near clamped at T_MIN), to count what
     it does: returns (t, slot, counts) with internal-node visits (8 slab
-    tests each), leaf visits, and distinct internal nodes and clusters.
-    Its (t, slot) must equal the kernel's, slots included."""
+    tests each), leaf visits, distinct internal nodes and clusters, and for
+    warps of 32 lanes in ray order the loop iterations ("warp_steps": per
+    step, the warps with a lane still walking) and "warp_leaf_passes" (per
+    step, the warps with a lane at a leaf).  Its (t, slot) must equal the
+    kernel's, slots included."""
     from rust_raytracer_torch.ops import bvh8, threaded
 
     n, dev = org.shape[0], org.device
@@ -515,7 +551,7 @@ def bvh8_walk(pack, org, dirn, t_max):
     k_idx = torch.arange(128, device=dev)
     seen8 = torch.zeros((box.shape[0],), dtype=torch.bool, device=dev)
     seen_cl = torch.zeros((rows.shape[0],), dtype=torch.bool, device=dev)
-    visits = leaves = 0
+    visits = leaves = warp_steps = leaf_passes = 0
     lanes = torch.arange(n, device=dev)
     t_min = torch.tensor(1e-3, device=dev)
     while lanes.numel():
@@ -523,6 +559,8 @@ def bvh8_walk(pack, org, dirn, t_max):
         v = stack[lanes, sp[lanes]]
         leaf = v < 0
         ln, cl = lanes[leaf], -v[leaf] - 1
+        warp_steps += int(threaded.warps_of(lanes))
+        leaf_passes += int(threaded.warps_of(ln))
         if ln.numel():
             tt = threaded.mt_rows(org[ln], dirn[ln], rows[cl], best[ln])
             tmin = tt.min(dim=1).values
@@ -556,7 +594,8 @@ def bvh8_walk(pack, org, dirn, t_max):
         lanes = lanes[sp[lanes] > 0]
     t = torch.where(slot < 0, t_max, best)
     return t, slot, dict(node_visits=visits, leaf_visits=leaves, nodes=int(seen8.sum()),
-                         clusters=int(seen_cl.sum()))
+                         clusters=int(seen_cl.sum()), warp_steps=warp_steps,
+                         warp_leaf_passes=leaf_passes)
 
 
 def bvh8_bound(pack, n, counts):
@@ -648,8 +687,10 @@ def threaded_parity(pack, camera, dev):
 
 def threaded_times(pack, cases, card):
     """K3, its plain version and the BVH8 kernel on the same 2^18 primary
-    and bounce rays (median of 5), with the plain walk's counts and K3's
-    bound.  Returns {tag: (k3_ms, plain_ms, k1_ms, bound_ms, bound_by)}."""
+    and bounce rays (time_ms), with the plain walk's counts and K3's
+    bound, and the BVH8 walk's counts (its torch-ops walk held equal to the
+    kernel, slots included).  Returns {tag: (k3_ms, plain_ms, k1_ms,
+    bound_ms, bound_by)}."""
     from rust_raytracer_torch.ops import bvh8, threaded
 
     out = {}
@@ -659,15 +700,23 @@ def threaded_times(pack, cases, card):
         threaded.traverse_plain(pack, o, d, tm, counts)
         b_ms, b_by = threaded_bound(o.shape[0], counts)
         out[tag] = (time_ms(lambda: threaded.intersect_triangles_threaded(pack, o, d, None, tm)),
-                    time_ms(lambda: threaded.traverse_plain(pack, o, d, tm)),
+                    time_ms(lambda: threaded.traverse_plain(pack, o, d, tm), PLAIN_REPS),
                     time_ms(lambda: bvh8.intersect_triangles_bvh8(pack, o, d, None, tm)),
                     b_ms, b_by)
         k3, plain, k1 = out[tag][:3]
+        t_w, i_w, k1_counts = bvh8_walk(pack, o, d, tm)
+        hold(f"BVH8 counting walk, sorted {tag}", (t_w, i_w),
+             bvh8.intersect_triangles_bvh8(pack, o, d, None, tm), tm, exact_slots=True)
         log(f"time threaded {tag} rays x{o.shape[0]}: kernel {k3:.3f} ms, plain {plain:.3f} ms, "
-            f"BVH8 kernel {k1:.3f} ms (K3/K1 {k3 / k1:.2f}) (median of 5; {card}); plain walk "
-            f"counts: node visits {counts['node_visits']}, leaf visits {counts['leaf_visits']}, "
-            f"distinct nodes {counts['nodes']}, distinct clusters {counts['clusters']}; bound "
-            f"{b_ms:.4f} ms by {b_by} ({b_ms / k3:.2%} of the kernel's time)")
+            f"BVH8 kernel {k1:.3f} ms (K3/K1 {k3 / k1:.2f}) (CUDA events, mean of "
+            f"{KERNEL_REPS} / plain {PLAIN_REPS} calls; {card}); "
+            f"plain walk counts (the kernel's own): node visits {counts['node_visits']}, "
+            f"distinct nodes {counts['nodes']}, distinct clusters {counts['clusters']}, "
+            f"{leaf_work(counts, o.shape[0])}; bound {b_ms:.4f} ms by {b_by} "
+            f"({b_ms / k3:.2%} of the kernel's time)")
+        log(f"BVH8 walk counts, sorted {tag} rays x{o.shape[0]} (equal to the kernel, slots "
+            f"included): internal node visits {k1_counts['node_visits']}, "
+            f"{leaf_work(k1_counts, o.shape[0])}")
     return out
 
 
@@ -775,6 +824,11 @@ def main():
     t0 = time.perf_counter()
     lib = bvh8.build_library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, HERE)}")
+    from rust_raytracer_torch.ops import _cuda
+    for name in ("bvh8_traverse", "threaded_traverse"):
+        a = _cuda.attributes("rrt_" + name)
+        log(f"{name}_kernel: {a['registers']} registers, {a['local_bytes']} local bytes "
+            f"(stack frame and spills), {a['shared_bytes']} static shared bytes a thread block")
 
     # the RNG's int64 arithmetic on the card equals the CPU's bit for bit
     q = np.random.default_rng(1).integers(0, 2**32, size=(4, 4096), dtype=np.int64)
@@ -827,21 +881,25 @@ def main():
     for tag, (o, d) in (("primary", (org, dirn)), ("bounce", (org2, dirn2))):
         times[tag] = (
             time_ms(lambda: bvh8.intersect_triangles_bvh8(pack, o, d, None, t_max)),
-            time_ms(lambda: bvh8.traverse_plain(pack, o, d, t_max)),
+            time_ms(lambda: bvh8.traverse_plain(pack, o, d, t_max), PLAIN_REPS),
         )
-        log(f"time {tag} rays x{LANES}: kernel {times[tag][0]:.3f} ms, "
-            f"plain {times[tag][1]:.3f} ms (median of 5; {card})")
-    # the BVH8 walk's own counts on the timed bounce rays, for its bound; the
+        log(f"time {tag} rays x{LANES}: kernel {times[tag][0]:.3f} ms, plain "
+            f"{times[tag][1]:.3f} ms (CUDA events, mean of {KERNEL_REPS} / plain "
+            f"{PLAIN_REPS} calls; {card})")
+    # the BVH8 walk's own counts on the timed rays, for its bound; the
     # counting walk in torch ops must give the kernel's (t, slot)
-    t_w, i_w, k1_counts = bvh8_walk(pack, org2, dirn2, t_max)
-    hold("BVH8 counting walk", (t_w, i_w), bvh8.intersect_triangles_bvh8(
-        pack, org2, dirn2, None, t_max), t_max, exact_slots=True)
-    k1_bound = bvh8_bound(pack, LANES, k1_counts)
-    log(f"BVH8 walk counts, bounce rays x{LANES} (the torch-ops walk equals the kernel, "
-        f"slots included): internal node visits {k1_counts['node_visits']}, leaf visits "
-        f"{k1_counts['leaf_visits']}, distinct nodes {k1_counts['nodes']}, distinct clusters "
-        f"{k1_counts['clusters']}; bound {k1_bound[0]:.4f} ms by {k1_bound[1]} "
-        f"({k1_bound[0] / times['bounce'][0]:.2%} of the kernel's time)")
+    k1_bounds = {}
+    for tag, (o, d) in (("primary", (org, dirn)), ("bounce", (org2, dirn2))):
+        t_w, i_w, k1_counts = bvh8_walk(pack, o, d, t_max)
+        hold(f"BVH8 counting walk, {tag}", (t_w, i_w), bvh8.intersect_triangles_bvh8(
+            pack, o, d, None, t_max), t_max, exact_slots=True)
+        k1_bounds[tag] = b_ms, b_by = bvh8_bound(pack, LANES, k1_counts)
+        log(f"BVH8 walk counts, {tag} rays x{LANES} (the torch-ops walk equals the kernel, "
+            f"slots included): internal node visits {k1_counts['node_visits']}, distinct "
+            f"nodes {k1_counts['nodes']}, distinct clusters {k1_counts['clusters']}, "
+            f"{leaf_work(k1_counts, LANES)}; bound {b_ms:.4f} ms by {b_by} "
+            f"({b_ms / times[tag][0]:.2%} of the kernel's time)")
+    k1_bound = k1_bounds["bounce"]
     del pack
 
     # ---- 4. a small render on the card agrees with the same on the CPU ----

@@ -97,17 +97,36 @@ def build_library() -> Path:
     return LIB_PATH
 
 
-def function(name: str, n_ptrs: int, n_ints: int):
-    """The library's C function `name` (building and loading the library
-    at first use), bound as (n_ptrs pointers, n_ints ints, stream) -> int."""
+def _library():
+    """The loaded library, built at first use."""
     global _lib
     with _lib_lock:
         if _lib is None:
             _lib = ctypes.CDLL(str(build_library()))
-    fn = getattr(_lib, name)
+    return _lib
+
+
+def function(name: str, n_ptrs: int, n_ints: int):
+    """The library's C function `name` (building and loading the library
+    at first use), bound as (n_ptrs pointers, n_ints ints, stream) -> int."""
+    fn = getattr(_library(), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     return fn
+
+
+def attributes(name: str) -> dict:
+    """Registers a thread, local bytes a thread (stack frame and spills)
+    and static shared bytes of the kernel behind the C function `name`,
+    from cudaFuncGetAttributes (its `name`_attrs export)."""
+    fn = getattr(_library(), name + "_attrs")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 3)()
+    err = fn(out)
+    if err != 0:
+        raise RuntimeError(f"{name}: cudaFuncGetAttributes failed, CUDA error {err}")
+    return dict(registers=out[0], local_bytes=out[1], shared_bytes=out[2])
 
 
 def launch(name: str, ptrs, ints, device) -> None:

@@ -16,12 +16,12 @@ at T_MIN_STATIC = 1e-3 (the caller's t_min is ignored, as in the reference).
 `traverse_plain` ports the reference's own oracle, the threaded-BVH walk of
 ops/intersect.py (kernel="jnp"), and is the plain version of every exact
 traversal: of this kernel and of the BVH8 kernel (ops/bvh8.py).  It clamps
-the slab's near distance at T_MIN_STATIC, as the oracle does; the kernel,
-as the reference kernel, does not.  That changes which leaves are visited,
-never the result: a box whose far distance is below T_MIN_STATIC holds only
-hits with t <= T_MIN_STATIC, which Möller–Trumbore rejects.  The kernel
-visits the nodes in the oracle's order, so its (t, slot) equal the plain
-version's, ties included.
+the slab's near distance at T_MIN_STATIC, as the oracle and the kernel do
+(the reference's Pallas kernel does not; a box whose far distance is below
+T_MIN_STATIC holds only hits that Möller–Trumbore rejects, so that changes
+which leaves are visited, never the result).  The kernel visits the nodes
+of each ray in the plain version's order, so its (t, slot) equal the plain
+version's, ties included, and the plain walk's counts are the kernel's.
 
 The kernel reads the node table `bvh_node_rows` (M, 8) f32, one 32-byte row
 a node (scene/pack.py:node_rows): min xyz, max xyz, then two int32 stored bit for
@@ -126,6 +126,13 @@ def mt_rows(o, d, rows, best):
     return torch.where(ok, t, torch.full_like(t, float("inf")))
 
 
+def warps_of(lanes):
+    """The number of distinct warps (32 lanes in ray order) among the
+    sorted lane ids `lanes`, as a 0-d tensor."""
+    w = lanes // 32
+    return (w[1:] != w[:-1]).sum() + int(w.numel() > 0)
+
+
 # leaf lanes tested per block in the plain version: bounds the (L, 128, 12)
 # gathered triangle rows at ~400 MB
 _LEAF_BLOCK = 1 << 16
@@ -142,7 +149,10 @@ def traverse_plain(pack, org, dirn, t_max, counts=None):
 
     `counts`, a dict if given, receives what the walk did: "node_visits"
     (slab tests), "leaf_visits" (clusters tested), "nodes" and "clusters"
-    (distinct ones touched), as Python ints.
+    (distinct ones touched), and for warps of 32 lanes in ray order, as the
+    kernel runs them, "warp_steps" (the warps' walk-loop iterations: per
+    step, the warps with a lane still walking) and "warp_leaf_passes" (per
+    step, the warps with a lane at a leaf), as Python ints.
     """
     n = org.shape[0]
     dev = org.device
@@ -164,6 +174,8 @@ def traverse_plain(pack, org, dirn, t_max, counts=None):
     if counts is not None:
         visits = torch.zeros((), dtype=torch.int64, device=dev)
         leaves = torch.zeros((), dtype=torch.int64, device=dev)
+        warp_steps = torch.zeros((), dtype=torch.int64, device=dev)
+        leaf_passes = torch.zeros((), dtype=torch.int64, device=dev)
         touched = torch.zeros((n_nodes,), dtype=torch.bool, device=dev)
         touched_leaf = torch.zeros((n_nodes,), dtype=torch.bool, device=dev)
 
@@ -197,6 +209,8 @@ def traverse_plain(pack, org, dirn, t_max, counts=None):
         if counts is not None:
             visits += nd.numel()
             leaves += leaf_sel.numel()
+            warp_steps += warps_of(lanes)
+            leaf_passes += warps_of(lanes[leaf_sel])
             touched[nd] = True
             touched_leaf[nd[leaf_sel]] = True
 
@@ -205,5 +219,6 @@ def traverse_plain(pack, org, dirn, t_max, counts=None):
         lanes = lanes[nxt < n_nodes]
     if counts is not None:
         counts.update(node_visits=int(visits), leaf_visits=int(leaves),
-                      nodes=int(touched.sum()), clusters=int(touched_leaf.sum()))
+                      nodes=int(touched.sum()), clusters=int(touched_leaf.sum()),
+                      warp_steps=int(warp_steps), warp_leaf_passes=int(leaf_passes))
     return best_t, best_i
