@@ -18,6 +18,11 @@ version, and the pipeline against the BVH8 kernel, on the traversal inputs
 that a wavefront render passes at its first, a mid-render and a drain
 step, and on primary rays over the whole image; the dense single-level
 pipeline on 2^15 lanes; each kernel's time against its plain version's;
+cull and MT against their plain versions on adversarial sets of 4096
+packets (NaN slabs, n1 = 0 and n1 = k1 rows, repeated supernodes;
+clusters listed twice or beside an identical copy, t tied across lanes,
+cnt 0 and cnt = k, dead rays beside live ones); the share of the
+mid-render step's listed (ray, cluster) pairs whose own box test hits;
 the wavefront main-path render, its launches, overflow and image against
 the BVH8 render's; and its step split.
 
@@ -37,9 +42,12 @@ their times the smoke prints the counts that design answers to, from the
 walks in torch ops (warps of 32 lanes in ray order): leaf visits, the warp
 leaf passes a per-thread 128-slot leaf loop would run and the share of
 lanes busy in them, the warps' loop iterations, and the cooperative
-test's equivalent (leaf visits x 4 / 128 passes).  Phase 1 prints K1's and
-K3's registers, local (stack and spill) bytes and shared bytes as the
-loaded module reports them (cudaFuncGetAttributes).
+test's equivalent (leaf visits x 4 / 128 passes).  Phase 1 prints K1's,
+K3's, K2a's and K2c's registers, local (stack and spill) bytes and shared
+bytes as the loaded module reports them (cudaFuncGetAttributes), the SASS
+instructions a test in K2a's and K2c's inner loops (cuobjdump, where the
+toolkit has it), and holds K2c's branch-free reciprocal equal to
+__frcp_rn on every float in its range.
 
 A kernel's time is the mean over KERNEL_REPS back-to-back calls of its
 wrapper between two CUDA events, after a warm-up call (PLAIN_REPS for a
@@ -63,9 +71,12 @@ top of this script and `rust_raytracer_tpu` is checked at the end.
 """
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 
 sys.modules["jax"] = None  # the port must run without JAX
 
@@ -93,6 +104,103 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_loops(lib_path, kernel):
+    """The loops of `kernel`'s SASS in the built library (`cuobjdump
+    --dump-sass`): for each backward branch, the opcodes of the
+    instructions from its target to the branch (static counts, "_total"
+    among them).  None where cuobjdump is missing or fails."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(exe):
+        return None
+    out = subprocess.run([exe, "--dump-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        return None
+    funcs, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None:
+            cur.append(line)
+    name = next((f for f in funcs if kernel in f), None)
+    if name is None:
+        return None
+    insts, labels, pending = [], {}, []
+    for line in funcs[name]:
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if ins:
+            addr = int(ins.group(1), 16)
+            labels.update((lb, addr) for lb in pending)
+            pending = []
+            insts.append((addr, ins.group(2)))
+    def opcode(text):
+        return next(w for w in text.split() if not w.startswith("@"))
+
+    def branch_target(text):
+        hexa, lab = re.search(r"0x([0-9a-f]+)", text), re.search(r"(\.L_x_\d+)", text)
+        return int(hexa.group(1), 16) if hexa else labels.get(lab.group(1)) if lab else None
+
+    loops = []
+    for addr, text in insts:
+        if not opcode(text).startswith("BRA"):
+            continue
+        target = branch_target(text)
+        if target is None or target > addr:
+            continue
+        body = [(a, t) for a, t in insts if target <= a <= addr]
+        # the hot path: skip each region that a predicated forward branch
+        # jumps over and that holds a CALL (rcp.rn's or the rare __frcp_rn
+        # slow path)
+        cold = set()
+        for a, t in body:
+            if t.startswith("@") and opcode(t).startswith("BRA"):
+                end = branch_target(t)
+                if end is not None and a < end <= addr:
+                    region = [b for b, u in body if a < b < end]
+                    if any(opcode(u).startswith("CALL") for b, u in body if a < b < end):
+                        cold.update(region)
+        ops = Counter(opcode(t) for _, t in body)
+        ops["_total"] = len(body)
+        ops["_hot"] = len(body) - len(cold)
+        ops["_hot_rcp"] = sum(opcode(t) == "MUFU.RCP" for a, t in body if a not in cold)
+        loops.append(ops)
+    return loops
+
+
+def loop_per_test(loops, kernel):
+    """SASS instructions a test on the hot path of the kernel's inner loop
+    (sass_loops): for wf_mt the loop whose hot path holds a MUFU.RCP for
+    each of its tests (one reciprocal a Möller–Trumbore test; the walk of
+    a packet whose rays are all live), for wf_cull the slot loop (the one
+    holding its barrier and ballot; 8 slab tests a pass).  Returns (hot
+    instructions a test, hot and static instructions of the loop, tests
+    in it, min/max a test) or None."""
+    def count(lp, prefix):
+        return sum(n for o, n in lp.items() if o.startswith(prefix))
+
+    if not loops:
+        return None
+    if kernel == "wf_mt":
+        cand = [lp for lp in loops if lp["_hot_rcp"] >= 8]
+        if not cand:
+            return None
+        lp = min(cand, key=lambda x: x["_hot"] / x["_hot_rcp"])
+        tests = lp["_hot_rcp"]
+    else:
+        cand = [lp for lp in loops if count(lp, "BAR") and count(lp, "VOTE")]
+        if not cand:
+            return None
+        lp, tests = min(cand, key=lambda x: x["_hot"]), 8
+    return (lp["_hot"] / tests, lp["_hot"], lp["_total"], tests,
+            count(lp, "FMNMX") / tests)
 
 
 def leaf_work(counts, n):
@@ -463,7 +571,7 @@ def wf_times(pack, org, dirn, t_max, card):
     cluster boxes of each live supernode slot; L2 reads each live slot's
     kept ids; MT tests 8 rays against the 128 triangles of each listed
     cluster.  Returns ({name: (kernel_ms, plain_ms)}, {name: (bound_ms,
-    bound_by)})."""
+    bound_by)}, MT's inputs (cl, cnt, org, dirn, tm, tri_rows))."""
     from rust_raytracer_torch.ops import wavefront as wf
 
     S = pack.wf_sn_lo.shape[0]
@@ -511,7 +619,182 @@ def wf_times(pack, org, dirn, t_max, card):
         + "; ".join(f"{nm} {bounds[nm][0]:.4f} ms by {bounds[nm][1]} "
                     f"({bounds[nm][0] / times[nm][0]:.2%} of the kernel's time)"
                     for nm in ("wf_cull", "wf_compact", "wf_mt")))
-    return times, bounds
+    return times, bounds, mt_in
+
+
+def cull_adversarial(dev, n_pk=4096, k1=40, seed=5):
+    """Kernel A's inputs at n_pk packets that probe its edge rows: a
+    synthetic table of 48 supernodes (dyadic boxes, a quarter of them flat
+    in one axis, some +3.4e38 point boxes), rays with a +-0 direction
+    component whose origin lies on a flat box's plane (a NaN slab: 0 * inf),
+    dead and capped lanes, and slot rows with n1 = 0, n1 = k1 and a
+    supernode repeated.  Returns the cull arguments without kc."""
+    r = np.random.default_rng(seed)
+    S, planes = 48, np.array([-0.5, 0.0, 0.25, 0.5], np.float32)
+    lo = np.round(r.uniform(-1, 1, (S, 3, 128)) * 64) / 64
+    hi = lo + np.round(r.uniform(0, 0.5, (S, 3, 128)) * 64) / 64
+    flat = r.random((S, 128)) < 0.25
+    axis = r.integers(0, 3, (S, 128))
+    at = planes[r.integers(0, 4, (S, 128))]
+    for a in range(3):
+        m = flat & (axis == a)
+        lo[:, a][m] = hi[:, a][m] = at[m]
+    bounds = np.concatenate([lo, hi], axis=1).astype(np.float32)
+    bounds[:, :, 120:] = 3.4e38                          # unused lanes
+    n = n_pk * 8
+    org = r.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    dirn = r.normal(size=(n, 3)).astype(np.float32)
+    on = np.repeat(r.random(n_pk) < 0.5, 8)              # packets on a plane
+    ax = r.integers(0, 3, n)
+    rows = np.nonzero(on)[0]
+    org[rows, ax[rows]] = planes[r.integers(0, 4, rows.size)]
+    dirn[rows, ax[rows]] = np.where(r.random(rows.size) < 0.5, 0.0, -0.0)
+    tm = np.full(n, 3.4e38, np.float32)
+    lane = np.arange(n) % 8
+    tm[lane == 1] = 0.0
+    tm[lane == 2] = 1e-3
+    tm[lane == 3] = r.uniform(0.01, 2.0, (lane == 3).sum())
+    sn_slot = r.integers(0, S, (n_pk, k1)).astype(np.int32)
+    sn_slot[1::7] = sn_slot[1::7, :1]                    # one supernode in every slot
+    n1 = r.integers(0, k1 + 1, n_pk).astype(np.int32)
+    n1[::5], n1[2::5] = 0, k1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (t(sn_slot), t(n1), t(np.arange(S, dtype=np.int32) * 128), t(bounds), t(org),
+            t(dirn), t(tm))
+
+
+def nan_share(sn_slot, n1, sn_bounds, org, dirn, tm, step=512):
+    """Over the live (ray, box) pairs of kernel A's inputs: the pairs whose
+    slab holds a NaN, and the hit bits that would flip if min/max dropped
+    NaN (torch.fmin/fmax) instead of propagating it."""
+    n_pk, k1 = sn_slot.shape
+    t_min = torch.tensor(1e-3, device=org.device)
+    nan = flips = 0
+    for s in range(0, n_pk, step):
+        p = slice(s, s + step)
+        blk = sn_bounds[sn_slot[p].long()][:, :, None]            # (P, k1, 1, 6, SN)
+        o = org.view(n_pk, 1, 8, 3, 1)[p]
+        inv = (1.0 / dirn).view(n_pk, 1, 8, 3, 1)[p]
+        t = [(blk[..., a + 3 * e, :] - o[..., a, :]) * inv[..., a, :]
+             for e in (0, 1) for a in range(3)]
+        live = (torch.arange(k1, device=org.device)[None, :] < n1[p, None])[:, :, None, None]
+        hits = []
+        for mn, mx in ((torch.minimum, torch.maximum), (torch.fmin, torch.fmax)):
+            near = mx(mx(mn(t[0], t[3]), mn(t[1], t[4])), mx(mn(t[2], t[5]), t_min))
+            far = mn(mn(mx(t[0], t[3]), mx(t[1], t[4])),
+                     mn(mx(t[2], t[5]), tm.view(n_pk, 1, 8, 1)[p]))
+            hits.append((near <= far) & live)
+        nan += int((torch.stack(t).isnan().any(dim=0) & live).sum())
+        flips += int((hits[0] != hits[1]).sum())
+    return nan, flips
+
+
+def mt_adversarial(pack, cl, cnt, org, dirn, tm, n_pk=4096):
+    """Kernel MT's inputs at the n_pk packets with the most candidates of a
+    recorded step, rewritten to probe its tie rule: the triangle table gets
+    a copy of every cluster (ids + nc) and a copy whose odd lanes repeat the
+    even lanes (ids + 2 nc, so a t ties across lanes); packets in turn list
+    each cluster then its copy, the copy first, each cluster twice, the
+    lane-tied copies padded to a full row of k (cnt = k), or nothing (cnt =
+    0); a quarter of the packets get dead lanes (tm 0, 5e-4, 1e-3) beside
+    live ones and one packet in 16 only dead lanes.  Returns the mt
+    arguments."""
+    nc, k = pack.tri_rows.shape[0] // 128, cl.shape[1]
+    rows = pack.tri_rows.view(nc, 128, 12)
+    tied = rows.clone()
+    tied[:, 1::2] = rows[:, 0::2]
+    tri = torch.cat([rows, rows, tied]).reshape(-1, 12).contiguous()
+    pk = torch.sort(cnt, descending=True, stable=True).indices[:n_pk]
+    base, c0 = cl[pk].long(), cnt[pk].long()
+    j = torch.arange(k, device=cl.device)
+    src = base.gather(1, torch.minimum(j // 2, (c0[:, None] - 1).clamp(min=0)).expand(-1, k))
+    kind = torch.arange(pk.numel(), device=cl.device) % 5
+    alt = (j % 2)[None, :]
+    out = torch.where(kind[:, None] == 0, src + nc * alt, src)          # c, copy
+    out = torch.where(kind[:, None] == 1, src + nc * (1 - alt), out)    # copy, c
+    full = base.gather(1, j[None, :] % c0[:, None].clamp(min=1))
+    out = torch.where(kind[:, None] == 3, full + 2 * nc, out)           # lane ties
+    n_new = torch.where(kind <= 2, torch.clamp(2 * c0, max=k), c0)
+    n_new = torch.where(kind == 3, torch.full_like(c0, k), n_new)
+    n_new = torch.where(kind == 4, torch.zeros_like(c0), n_new)
+    sel = (pk[:, None] * 8 + torch.arange(8, device=cl.device)).reshape(-1)
+    o, d, t = org[sel].contiguous(), dirn[sel].contiguous(), tm[sel].clone()
+    lane = torch.arange(t.numel(), device=t.device)
+    part = ((lane // 8) % 4 == 1) & (lane % 8 < 3)
+    t = torch.where(part & (lane % 8 == 0), 0.0, t)
+    t = torch.where(part & (lane % 8 == 1), 5e-4, t)
+    t = torch.where(part & (lane % 8 == 2), 1e-3, t)
+    t = torch.where((lane // 8) % 16 == 3, 0.0, t)
+    return (out.to(torch.int32).contiguous(), n_new.to(torch.int32).contiguous(), o, d,
+            t.contiguous(), tri)
+
+
+def wf_adversarial(wpack, org, dirn, cl, cnt, tm, dev, card):
+    """K2a and K2c against cull_plain and mt_plain on the adversarial sets:
+    cull_adversarial, and mt_adversarial from a recorded step's rays and
+    lists (org, dirn, cl, cnt, tm).  Returns MT's max |dt|."""
+    from rust_raytracer_torch.ops import wavefront as wf
+
+    a_in = cull_adversarial(dev)
+    nan, flips = nan_share(a_in[0], a_in[1], a_in[3], a_in[4], a_in[5], a_in[6])
+    if not flips:
+        raise AssertionError("the adversarial cull set exercises no decisive NaN slab")
+    for kc in (wf.KC, 4):
+        keys, counts = wf.cull(*a_in, kc)
+        keys_p, counts_p = wf.cull_plain(*a_in, kc)
+        if not (torch.equal(keys, keys_p) and torch.equal(counts, counts_p)):
+            raise AssertionError(f"adversarial cull (kc {kc}): wf_cull differs from cull_plain")
+    n1 = a_in[1]
+    log(f"wavefront adversarial cull: {a_in[0].shape[0]} packets (n1 = 0 on "
+        f"{int((n1 == 0).sum())}, n1 = k1 on {int((n1 == a_in[0].shape[1]).sum())}), "
+        f"{nan} live (ray, box) pairs with a NaN slab, {flips} hit bits that NaN-dropping "
+        f"min/max would flip; keys and counts equal to cull_plain at kc {wf.KC} and 4")
+    k = cl.shape[1]
+    m_in = mt_adversarial(wpack, cl, cnt, org, dirn, tm)
+    t, slot = wf.mt(*m_in)
+    t_p, slot_p = wf.mt_plain(*m_in)
+    torch.cuda.synchronize()
+    err = (t - t_p).abs().max().item()
+    if not (err == 0 and torch.equal(slot, slot_p)):
+        raise AssertionError(f"adversarial MT: wf_mt differs from mt_plain (max |dt| {err}, "
+                             f"slots equal {torch.equal(slot, slot_p)})")
+    nc = wpack.tri_rows.shape[0] // 128
+    dead = m_in[4] <= 1e-3
+    if not (torch.equal(t[dead], m_in[4][dead]) and bool((slot[dead] == -1).all())):
+        raise AssertionError("adversarial MT: a dead ray did not return (tm, -1)")
+    log(f"wavefront adversarial MT: {m_in[0].shape[0]} packets (cnt 0 on "
+        f"{int((m_in[1] == 0).sum())}, cnt = k on {int((m_in[1] == k).sum())}), "
+        f"{int(dead.sum())} dead rays, hits {int((slot >= 0).sum())} (on a cluster copy "
+        f"{int((slot >= 128 * nc).sum())}); max |dt| {err:.3e}, slots equal to mt_plain "
+        f"({card})")
+    return err
+
+
+def listed_box_hits(pack, cl, cnt, org, dirn, tm, chunk=1 << 18):
+    """Of the listed (ray, cluster) pairs (each of a packet's 8 rays with
+    each cluster of its row), how many pass the ray's own slab test against
+    that cluster's box (wf_cl_lo/hi, near clamped at T_MIN, far at tm); the
+    others are tested by MT only because a packet-mate's box test hit.
+    Returns (hits, pairs)."""
+    k = cl.shape[1]
+    p_idx, j_idx = torch.nonzero(torch.arange(k, device=cl.device)[None, :] < cnt[:, None],
+                                 as_tuple=True)
+    hits = 0
+    for s in range(0, p_idx.numel(), chunk):
+        p, c = p_idx[s:s + chunk], cl[p_idx[s:s + chunk], j_idx[s:s + chunk]].long()
+        lo, hi = pack.wf_cl_lo[c][:, None], pack.wf_cl_hi[c][:, None]
+        o, d = org.view(-1, 8, 3)[p], dirn.view(-1, 8, 3)[p]
+        inv = 1.0 / d
+        t0, t1 = (lo - o) * inv, (hi - o) * inv
+        near = torch.maximum(torch.maximum(torch.minimum(t0[..., 0], t1[..., 0]),
+                                           torch.minimum(t0[..., 1], t1[..., 1])),
+                             torch.clamp(torch.minimum(t0[..., 2], t1[..., 2]), min=1e-3))
+        far = torch.minimum(torch.minimum(torch.maximum(t0[..., 0], t1[..., 0]),
+                                          torch.maximum(t0[..., 1], t1[..., 1])),
+                             torch.minimum(torch.maximum(t0[..., 2], t1[..., 2]),
+                                           tm.view(-1, 8)[p]))
+        hits += int((near <= far).sum())
+    return hits, p_idx.numel() * 8
 
 
 def image_agreement(a, b):
@@ -816,6 +1099,7 @@ def main():
     from rust_raytracer_torch.utils import procgen
 
     dev = torch.device("cuda:0")
+    start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -825,10 +1109,27 @@ def main():
     lib = bvh8.build_library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, HERE)}")
     from rust_raytracer_torch.ops import _cuda
-    for name in ("bvh8_traverse", "threaded_traverse"):
+    for name in ("bvh8_traverse", "threaded_traverse", "wf_cull", "wf_mt"):
         a = _cuda.attributes("rrt_" + name)
         log(f"{name}_kernel: {a['registers']} registers, {a['local_bytes']} local bytes "
             f"(stack frame and spills), {a['shared_bytes']} static shared bytes a thread block")
+    sass = {}
+    for name, ops in (("wf_cull", SLAB_OPS), ("wf_mt", MT_OPS)):
+        sass[name] = per = loop_per_test(sass_loops(lib, name + "_kernel"), name)
+        if per is None:
+            log(f"{name}_kernel SASS: not read (no cuobjdump, or no inner loop found)")
+        else:
+            log(f"{name}_kernel SASS inner loop: {per[0]:.2f} instructions a test on its hot "
+                f"path ({per[1]} hot of {per[2]} static instructions, {per[3]} tests a pass), "
+                f"{per[4]:.1f} min/max a test; the bound counts {ops} operations a test")
+    # wf_mt's reciprocal (rcp_fast) against __frcp_rn on every float in its range
+    rcp = torch.zeros(2, dtype=torch.int64, device=dev)
+    _cuda.launch("rrt_wf_mt_rcp_check", (rcp,), (), dev)
+    differ, checked = rcp.tolist()
+    if differ or checked != 2 * 252 * (1 << 23):
+        raise AssertionError(f"rcp_fast differs from __frcp_rn on {differ} of {checked} floats")
+    log(f"wf_mt reciprocal: equal to __frcp_rn bit for bit on all {checked} floats with "
+        f"2^-126 <= |x| < 2^126")
 
     # the RNG's int64 arithmetic on the card equals the CPU's bit for bit
     q = np.random.default_rng(1).integers(0, 2**32, size=(4, 4096), dtype=np.int64)
@@ -990,8 +1291,18 @@ def main():
     dense_err = dense_parity(wpack, *(a[:n_dense].contiguous() for a in mid))
 
     # ---- 10. each wavefront kernel's time against its plain version's ----
-    wf_time, wf_bounds = wf_times(wpack, *mid, card)
-    del mid
+    wf_time, wf_bounds, (cl, cnt, _, _, tm, _) = wf_times(wpack, *mid, card)
+
+    # ---- 10b. K2a and K2c on adversarial inputs, and how many of the mid
+    # step's listed (ray, cluster) pairs hit the cluster's box themselves ----
+    t0 = time.perf_counter()
+    adv_err = wf_adversarial(wpack, mid[0], mid[1], cl, cnt, tm, dev, card)
+    box_hits, pairs = listed_box_hits(wpack, cl, cnt, mid[0], mid[1], tm)
+    log(f"wavefront listed pairs, mid-render step: {pairs} (ray, cluster) pairs tested by MT, "
+        f"{box_hits} ({box_hits / max(pairs, 1):.2%}) pass the ray's own slab test against the "
+        f"cluster's box; the rest are tested because a packet-mate's box test hit (phase "
+        f"{time.perf_counter() - t0:.1f} s)")
+    del mid, cl, cnt, tm
 
     # ---- 11. the wavefront main path ----
     wf_metrics = PoolMetrics()
@@ -1165,8 +1476,9 @@ def main():
         + "; ".join(f"{tag} {ms:.1f} - {n} x {b:.4f} = {ms - n * b:.1f} ms"
                     for tag, ms, n, b in excess) + f" ({card})")
     wf_err = {"wf_cull": 0, "wf_compact": 0,
-              "wf_mt": max([dense_err] + [st["mt_err"] for st in stage.values()])}
+              "wf_mt": max([dense_err, adv_err] + [st["mt_err"] for st in stage.values()])}
     replaces = {"wf_cull": 302, "wf_compact": 386, "wf_mt": 108}
+    log(f"smoke run: {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "bvh8_traverse",
         "route": "cuda",

@@ -22,6 +22,7 @@ set the candidate cap to 16, which is at least the scenes' cluster count
 (8 and 12), so their results are the default cap's.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -239,6 +240,90 @@ def test_l1_and_cull_match_jax(packs, name, kc):
     assert want_cnt[live].max() > (kc if kc < 32 else 0)
 
 
+def _slab_hits(bounds, sn_slot, n1, org, dirn, tm, mn, mx):
+    """Kernel A's slab test in numpy float32 with the given min/max:
+    (hit (P, k1, SN) of live slots, near (P, k1, 8, SN))."""
+    n_pk, k1 = sn_slot.shape
+    with np.errstate(all="ignore"):
+        inv = (np.float32(1) / dirn).reshape(n_pk, 1, pwf.R, 3, 1)
+        o = org.reshape(n_pk, 1, pwf.R, 3, 1)
+        blk = bounds[sn_slot][:, :, None]
+        t = [(blk[..., a + 3 * e, :] - o[..., a, :]) * inv[..., a, :]
+             for e in (0, 1) for a in range(3)]
+        near = mx(mx(mn(t[0], t[3]), mn(t[1], t[4])), mx(mn(t[2], t[5]), np.float32(1e-3)))
+        far = mn(mn(mx(t[0], t[3]), mx(t[1], t[4])),
+                 mn(mx(t[2], t[5]), tm.reshape(n_pk, 1, pwf.R, 1)))
+    live = np.arange(k1)[None, :] < n1[:, None]
+    return (near <= far).any(axis=2) & live[..., None], near
+
+
+def _old_nan_min(a, b):  # rrt::nan_min of csrc/traverse_common.cuh
+    return np.where((a < b) | np.isnan(a), a, b)
+
+
+def _old_nan_max(a, b):
+    return np.where((a > b) | np.isnan(a), a, b)
+
+
+@pytest.mark.parametrize("kc", [4, 32])
+def test_cull_edge_rows(kc):
+    """Kernel A on rows the one-block-a-packet kernel treats apart: n1 = 0
+    and n1 = k1, a supernode repeated across slots, and rays with a +-0
+    direction component whose origin lies on a flat box's plane (a NaN
+    slab: 0 * inf).  The plain version equals JAX's interpret-mode kernel
+    on live rows and writes -1 / 0 on dead ones.  Premise of the kernel's
+    one-instruction min.NaN / max.NaN: NaN-propagating min/max (np.minimum)
+    give the hit bits of the three-instruction nan_min / nan_max; both
+    differ from NaN-dropping ones (np.fmin) here, so the NaN path decides
+    hits; and near is T_MIN or more (or NaN), so the sign of a zero never
+    decides one."""
+    rng = np.random.default_rng(17)
+    S, k1, n_pk, planes = 4, 8, 128, np.array([0.0, 0.5], np.float32)
+    lo = np.round(rng.uniform(-1, 1, (S, 3, 128)) * 16) / 16
+    hi = lo + np.round(rng.uniform(0, 0.5, (S, 3, 128)) * 16) / 16
+    for sn, ax, n in ((3, 0, 64), (2, 1, 32)):        # flat in x, flat in y
+        lo[sn, ax, :n] = hi[sn, ax, :n] = planes[np.arange(n) % 2]
+    bounds = np.concatenate([lo, hi], axis=1).astype(np.float32)
+    bounds[:, :, 120:] = 3.4e38                       # unused lanes
+    org = rng.uniform(-1.5, 1.5, (n_pk * 8, 3)).astype(np.float32)
+    dirn = rng.normal(size=(n_pk * 8, 3)).astype(np.float32)
+    on = np.arange(32 * 8)                            # packets 0-31: on a plane
+    ax = (on // 8) % 2
+    org[on, ax] = planes[on % 2]
+    dirn[on, ax] = np.where(on % 3 == 0, np.float32(-0.0), np.float32(0.0))
+    lane = np.arange(n_pk * 8) % 4
+    t_max = np.where(lane == 0, np.inf, 3.4e38).astype(np.float32)
+    t_max[lane == 2] = rng.uniform(0.01, 3.0, (lane == 2).sum())
+    t_max[lane == 3] = 0.0
+    tm = np.minimum(t_max, np.float32(pwf.BIG))
+    sn_slot = rng.integers(0, S, (n_pk, k1)).astype(np.int32)
+    sn_slot[:32:2], sn_slot[1:32:2] = 3, [2, 2, 3, 3, 2, 3, 3, 2]  # repeated supernodes
+    n1 = rng.integers(0, k1 + 1, n_pk).astype(np.int32)
+    n1[::4], n1[1::4] = 0, k1
+
+    keys, counts = (x.numpy() for x in twf.cull(
+        *(torch.from_numpy(a) for a in (sn_slot, n1, np.arange(S, dtype=np.int32) * 128,
+                                        bounds, org, dirn, tm)), kc))
+    jp = SimpleNamespace(wf_sn_lo=jnp.zeros((S, 3)),
+                         wf_sn_start=jnp.asarray(np.arange(S, dtype=np.int32) * 128),
+                         wf_sn_bounds=jnp.asarray(bounds))
+    want_keys, want_cnt = _jax_cull(jp, sn_slot, n1, jnp.asarray(org), jnp.asarray(dirn),
+                                    jnp.asarray(t_max), k1, kc)
+    live = np.arange(k1)[None, :] < n1[:, None]
+    np.testing.assert_array_equal(keys[live], want_keys[live])
+    np.testing.assert_array_equal(counts[live], want_cnt[live])
+    assert (keys[~live] == -1).all() and (counts[~live] == 0).all()
+    assert (counts[live] > 4).any() and (counts[live] == 0).any()
+
+    hit, near = _slab_hits(bounds, sn_slot, n1, org, dirn, tm, np.minimum, np.maximum)
+    old, _ = _slab_hits(bounds, sn_slot, n1, org, dirn, tm, _old_nan_min, _old_nan_max)
+    dropping, _ = _slab_hits(bounds, sn_slot, n1, org, dirn, tm, np.fmin, np.fmax)
+    np.testing.assert_array_equal(hit, old)
+    np.testing.assert_array_equal(hit.sum(axis=2), counts)
+    assert np.isnan(near).any() and (hit != dropping).sum() > 0
+    assert ((near >= np.float32(1e-3)) | np.isnan(near)).all()
+
+
 def test_nearest_boxes_ties_keep_index_order():
     """Boxes that all contain the ray origins give every box the clamped
     entry t = T_MIN, one key for all: lax.top_k's order (lower index first)
@@ -330,6 +415,109 @@ def test_mt_matches_jax(packs, name):
     assert (slot >= 0).sum() >= 16
     _hold(t, slot, jt, js)
     np.testing.assert_array_equal(t[slot < 0], jt[js < 0])  # misses: min(t_max, 3.4e38)
+
+
+def _square_clusters(spec, nc):
+    """nc clusters of zero (never hit) triangles, and for each (cluster,
+    lane, z) of spec the triangle v0 = (0, 0, z), e1 = (0, 2, 0), e2 =
+    (2, 0, 0): a ray from (x, y, 0) along +z hits it where x, y >= 0 and
+    x + y <= 2, at t = z exactly (every product and sum is exact in f32, so
+    XLA's FMAs give JAX the same t).  Returns the JAX tri_geom (nc, 10,
+    128) and the port's tri_rows (nc * 128, 12)."""
+    geom = np.zeros((nc, 128, 10), np.float32)
+    for c, lane, z in spec:
+        geom[c, lane, :9] = (0, 0, z, 0, 2, 0, 2, 0, 0)
+    rows = np.concatenate([geom, np.zeros((nc, 128, 2), np.float32)], axis=2)
+    return jnp.asarray(np.transpose(geom, (0, 2, 1))), torch.from_numpy(rows.reshape(-1, 12))
+
+
+def _mt_both(jgeom, tri_rows, rows, cnts, org, t_max):
+    """MT on 128 packets (the rows and counts repeated in turn, rays along
+    +z): the port's (plain on the CPU) and JAX's interpret-mode kernel,
+    each as numpy (t, slot)."""
+    n_pk = 128
+    cl = np.zeros((n_pk, CAP), np.int32)
+    cnt = np.zeros(n_pk, np.int32)
+    for p in range(n_pk):
+        row = rows[p % len(rows)]
+        cl[p, :len(row)] = row
+        cnt[p] = cnts[p % len(rows)]
+    dirn = np.tile(np.array([0, 0, 1], np.float32), (n_pk * 8, 1))
+    tm = np.minimum(t_max, np.float32(pwf.BIG))
+    t, slot = twf.mt(*(torch.from_numpy(a) for a in (cl, cnt, org, dirn, tm)), tri_rows)
+    jt, js = pwf._mt_call(jnp.asarray(cl), jnp.asarray(cnt), jgeom, jnp.asarray(org),
+                          jnp.asarray(dirn), jnp.asarray(t_max), CAP, True)
+    return (t.numpy(), slot.numpy()), (np.asarray(jt), np.asarray(js))
+
+
+def test_mt_tie_rule_matches_jax():
+    """The running best: a strict `<` per (ray, lane) in slot order, then
+    the minimum t and the lowest id at that t.  Rows list a cluster twice,
+    a cluster beside its identical copy (either first), clusters whose
+    hits tie across lanes, cnt 0 and cnt = CAP; every t is exact, so the
+    port and JAX must give the same t and the same slot everywhere."""
+    C0, C1, C2, C3, C4, C5 = range(6)
+    spec = [(C0, 5, 10.0), (C0, 70, 10.0), (C1, 5, 10.0), (C1, 70, 10.0),   # C1 = C0
+            (C2, 3, 10.0), (C3, 100, 5.0), (C5, 5, 10.0)]                   # C4 empty
+    jgeom, tri_rows = _square_clusters(spec, 6)
+    # (row, cnt, t_max, the slot of a ray that hits every square, its t)
+    cases = [([C1, C0], 2, np.inf, C1 * 128 + 5, 10.0),   # the copy first keeps its ids
+             ([C0, C1], 2, np.inf, 5, 10.0),
+             ([C5, C0], 2, np.inf, 70, 10.0),             # lane 5 keeps C5's id 645
+             ([C0, C5], 2, np.inf, 5, 10.0),
+             ([C0, C0], 2, np.inf, 5, 10.0),              # one cluster listed twice
+             ([C2, C0], 2, np.inf, 5, 10.0),              # a tie across lanes and slots
+             ([C2, C5], 2, np.inf, C2 * 128 + 3, 10.0),
+             ([C3, C0, C0], 3, np.inf, C3 * 128 + 100, 5.0),
+             ([C0], 0, np.inf, -1, None),                 # cnt 0
+             ([C4] * (CAP - 1) + [C0], CAP, np.inf, 5, 10.0),   # cnt = CAP
+             ([C4] * CAP, CAP, np.inf, -1, None),
+             ([C0, C3], 2, 8.0, C3 * 128 + 100, 5.0),
+             ([C0], 1, 8.0, -1, None)]                    # beyond t_max
+    # per packet lane: inside, inside, on the edge x + y = 2, a vertex,
+    # outside, outside, inside, on the edge x = 0
+    xy = np.array([(0.5, 0.5), (0.25, 0.75), (1, 1), (0, 0), (1.5, 1.5), (-0.5, 0.5),
+                   (1.25, 0.5), (0, 1.5)], np.float32)
+    inside = np.array([1, 1, 1, 1, 0, 0, 1, 1], bool)
+    org = np.zeros((128 * 8, 3), np.float32)
+    org[:, :2] = np.tile(xy, (128, 1))
+    t_max = np.array([cases[p % len(cases)][2] for p in range(128) for _ in range(8)],
+                     np.float32)
+    (t, slot), (jt, js) = _mt_both(jgeom, tri_rows, [c[0] for c in cases],
+                                   [c[1] for c in cases], org, t_max)
+    np.testing.assert_array_equal(slot, js)
+    np.testing.assert_array_equal(t, jt)
+    for p in range(128):
+        _, _, tmax, want, want_t = cases[p % len(cases)]
+        hit = inside & (want >= 0)
+        np.testing.assert_array_equal(slot[8 * p:8 * p + 8], np.where(hit, want, -1))
+        np.testing.assert_array_equal(t[8 * p:8 * p + 8], np.where(
+            hit, np.float32(want_t or 0), np.minimum(np.float32(tmax), np.float32(pwf.BIG))))
+
+
+def test_mt_dead_rays_return_tm():
+    """The premise of the kernel's block-uniform skip: a ray with tm <=
+    T_MIN (0, 5e-4, 1e-3) takes no hit, since no t is both > T_MIN and
+    < tm, so it returns (tm, -1), beside live rays of the same packet
+    (which hit a triangle at t = 0.002, just past T_MIN, and not one at
+    t = 0.0008, short of it) and in packets whose rays are all dead."""
+    jgeom, tri_rows = _square_clusters([(0, 5, 10.0), (1, 9, 0.002), (2, 7, 0.0008)], 3)
+    lanes = {0: [0.0, 5e-4, 1e-3, np.inf, np.inf, 1.0, 0.0015, 3.4e38],  # dead beside live
+             1: [0.0, 5e-4, 1e-3, 0.0, 1e-3, 5e-4, 0.0, 0.0],           # all dead
+             2: [np.inf] * 8}                                           # all live
+    t_max = np.array([lanes[p % 3][i] for p in range(128) for i in range(8)], np.float32)
+    org = np.tile(np.array([0.5, 0.5, 0.0], np.float32), (128 * 8, 1))
+    (t, slot), (jt, js) = _mt_both(jgeom, tri_rows, [[2, 1, 0]], [3], org, t_max)
+    np.testing.assert_array_equal(slot, js)
+    np.testing.assert_array_equal(t, jt)
+    tm = np.minimum(t_max, np.float32(pwf.BIG))
+    dead = tm <= np.float32(pwf.T_MIN_STATIC)
+    by_packet = dead.reshape(128, 8)
+    assert by_packet.all(axis=1).sum() == 43 and by_packet.any(axis=1).sum() == 86
+    assert (slot[dead] == -1).all() and (t[dead] == tm[dead]).all()
+    hit = ~dead & (tm > np.float32(0.002))
+    assert (slot[hit] == 128 + 9).all() and (t[hit] == np.float32(0.002)).all()
+    assert (slot[~dead & ~hit] == -1).all() and (t[~dead & ~hit] == tm[~dead & ~hit]).all()
 
 
 # ---------------------------------------------------------------- pipelines
