@@ -12,19 +12,24 @@ card agrees with the same render on the CPU, then renders cornell_dragon at
 again with every pool step's traversal inputs recorded and holds the kernel
 against the plain version on each, then splits a pool step's device time.
 
-Then the same for the wavefront traversal (`kernel="wavefront"`, three
-kernels: cull, compact, Möller–Trumbore): each kernel against its plain
-version, and the pipeline against the BVH8 kernel, on the traversal inputs
-that a wavefront render passes at its first, a mid-render and a drain
-step, and on primary rays over the whole image; the dense single-level
-pipeline on 2^15 lanes; each kernel's time against its plain version's;
-cull and MT against their plain versions on adversarial sets of 4096
-packets (NaN slabs, n1 = 0 and n1 = k1 rows, repeated supernodes;
-clusters listed twice or beside an identical copy, t tied across lanes,
-cnt 0 and cnt = k, dead rays beside live ones); the share of the
+Then the same for the wavefront traversal (`kernel="wavefront"`: on the
+main path two kernels, the fused cull+compact and Möller–Trumbore; the
+standalone cull and compact kernels are held too): each kernel against
+its plain version, the fused kernel against compact(cull(...)), and the
+pipeline against the BVH8 kernel, on the traversal inputs that a
+wavefront render passes at its first, a mid-render and a drain step, and
+on primary rays over the whole image; the dense single-level pipeline on
+2^15 lanes; each kernel's time against its plain version's, the fused
+kernel's against cull then compact, and the peak memory of one pipeline2
+call and of its stages fused and unfused; cull, cull+compact and MT
+against their plain versions on adversarial sets of 4096 packets (NaN
+slabs, n1 = 0 and n1 = k1 rows, repeated supernodes, a cap inside a
+slot; clusters listed twice or beside an identical copy, t tied across
+lanes, cnt 0 and cnt = k, dead rays beside live ones); the share of the
 mid-render step's listed (ray, cluster) pairs whose own box test hits;
-the wavefront main-path render, its launches, overflow and image against
-the BVH8 render's; and its step split.
+the wavefront main-path render, its launches (the kernels line reports
+these, and the parity phases' apart), overflow and image against the
+BVH8 render's; and its step split.
 
 Then the threaded-BVH walk (`kernel="threaded"`, K3): the kernel against
 its plain version and against the BVH8 kernel on 2^18 sorted primary,
@@ -43,11 +48,12 @@ walks in torch ops (warps of 32 lanes in ray order): leaf visits, the warp
 leaf passes a per-thread 128-slot leaf loop would run and the share of
 lanes busy in them, the warps' loop iterations, and the cooperative
 test's equivalent (leaf visits x 4 / 128 passes).  Phase 1 prints K1's,
-K3's, K2a's and K2c's registers, local (stack and spill) bytes and shared
-bytes as the loaded module reports them (cudaFuncGetAttributes), the SASS
-instructions a test in K2a's and K2c's inner loops (cuobjdump, where the
-toolkit has it), and holds K2c's branch-free reciprocal equal to
-__frcp_rn on every float in its range.
+K3's, K2a's (standalone and fused with K2b) and K2c's registers, local
+(stack and spill) bytes and shared bytes as the loaded module reports
+them (cudaFuncGetAttributes), the SASS instructions a test in K2a's (both
+kernels) and K2c's inner loops (cuobjdump, where the toolkit has it), and
+holds K2c's branch-free reciprocal equal to __frcp_rn on every float in
+its range.
 
 A kernel's time is the mean over KERNEL_REPS back-to-back calls of its
 wrapper between two CUDA events, after a warm-up call (PLAIN_REPS for a
@@ -106,6 +112,14 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def is_kernel(symbol, kernel):
+    """Whether `symbol` (a mangled or demangled function name) names the
+    function `kernel` as a whole: wf_cull_kernel is not
+    wf_cull_compact_kernel."""
+    return (symbol.startswith(f"_Z{len(kernel)}{kernel}")
+            or re.search(rf"(?<!\w){kernel}(?!\w)", symbol) is not None)
+
+
 def sass_loops(lib_path, kernel):
     """The loops of `kernel`'s SASS in the built library (`cuobjdump
     --dump-sass`): for each backward branch, the opcodes of the
@@ -126,7 +140,7 @@ def sass_loops(lib_path, kernel):
             cur = funcs.setdefault(m.group(1), [])
         elif cur is not None:
             cur.append(line)
-    name = next((f for f in funcs if kernel in f), None)
+    name = next((f for f in funcs if is_kernel(f, kernel)), None)
     if name is None:
         return None
     insts, labels, pending = [], {}, []
@@ -182,7 +196,8 @@ def loop_per_test(loops, kernel):
     a packet whose rays are all live), for wf_cull the slot loop (the one
     holding its barrier and ballot; 8 slab tests a pass).  Returns (hot
     instructions a test, hot and static instructions of the loop, tests
-    in it, min/max a test) or None."""
+    in it, min/max a test) or None.  `kernel` is wf_mt, or wf_cull or
+    wf_cull_compact (one slot loop)."""
     def count(lp, prefix):
         return sum(n for o, n in lp.items() if o.startswith(prefix))
 
@@ -335,7 +350,8 @@ def pool_step_parity(renderer):
 def step_split(renderer, camera, card, names, warm=10, steps=5):
     """Time `steps` steady-state pool steps of `renderer`'s path, then
     profile as many more: wall time, device time, and the share of each
-    traversal kernel (matched by its `__global__` name).  The profiler
+    traversal kernel (`names`: its `__global__` name less `_kernel`,
+    matched whole).  The profiler
     slows the host, so device busy time is read against the unprofiled
     wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -364,8 +380,8 @@ def step_split(renderer, camera, card, names, warm=10, steps=5):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    own = {nm: sum(e.self_device_time_total for e in kernels if nm in e.key) / 1e3 / steps
-           for nm in names}
+    own = {nm: sum(e.self_device_time_total for e in kernels
+                   if is_kernel(e.key, nm + "_kernel")) / 1e3 / steps for nm in names}
     trav_ms = sum(own.values())
     n_launch = sum(e.count for e in kernels) / steps
     shares = ", ".join(f"{nm} {ms:.3f} ms ({ms / dev_ms:.1%})" for nm, ms in own.items())
@@ -380,10 +396,12 @@ def step_split(renderer, camera, card, names, warm=10, steps=5):
             f"x{e.count // steps:<4d} {e.key[:90]}")
 
 
-def device_split(tag, fn, card, names):
+def device_split(tag, fn, card, names, absent=()):
     """Run `fn` once under the profiler: its device busy time, and the
-    device time and launches of each traversal kernel (matched by its
-    `__global__` name) over the whole call.  Returns {name: (ms, launches)}."""
+    device time and launches of each traversal kernel (`names`: its
+    `__global__` name less `_kernel`, matched whole) over the whole call;
+    raises if one of `names` did not run or one of `absent` did.  Returns
+    {name: (ms, launches)}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -395,10 +413,15 @@ def device_split(tag, fn, card, names):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    own = {nm: (sum(e.self_device_time_total for e in kernels if nm in e.key) / 1e3,
-                sum(e.count for e in kernels if nm in e.key)) for nm in names}
+    own = {nm: (sum(e.self_device_time_total for e in kernels
+                    if is_kernel(e.key, nm + "_kernel")) / 1e3,
+                sum(e.count for e in kernels if is_kernel(e.key, nm + "_kernel")))
+           for nm in names}
     if any(n == 0 for _, n in own.values()):
         raise AssertionError(f"device split {tag}: a traversal kernel was not seen: {own}")
+    ran = [nm for nm in absent if any(is_kernel(e.key, nm + "_kernel") for e in kernels)]
+    if ran:
+        raise AssertionError(f"device split {tag}: {ran} ran")
     log(f"device split, {tag}: wall {wall_ms:.1f} ms (profiled), device busy {dev_ms:.1f} ms, "
         f"{sum(e.count for e in kernels)} kernels; " + "; ".join(
             f"{nm} {ms:.1f} ms in {n} launches ({ms / max(dev_ms, 1e-9):.1%} of device time)"
@@ -491,11 +514,18 @@ def hold_vs_exact(pack, org, dirn, t_max, t, slot, dropped, tag):
     return (err.max().item() if both.any() else 0.0), agree
 
 
+def fused_equal(got, want):
+    """(row, total, counts) of the fused A+L2 against another's."""
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def wf_stage_parity(pack, org, dirn, t_max, tag):
     """Each wavefront kernel against its plain version on the same inputs
-    (A: keys and counts equal; L2: rows and totals equal; MT: max |dt| 0,
-    slots equal; overflow counts equal), then the kernel pipeline against
-    the BVH8 kernel.  Returns a dict of what was measured."""
+    (A: keys and counts equal; L2: rows and totals equal; A+L2 fused: row,
+    total and counts equal to L2's over A's and to its plain version's;
+    MT: max |dt| 0, slots equal; overflow counts equal), then the kernel
+    pipeline against the BVH8 kernel.  Returns a dict of what was
+    measured."""
     from rust_raytracer_torch.ops import wavefront as wf
 
     S = pack.wf_sn_lo.shape[0]
@@ -514,6 +544,11 @@ def wf_stage_parity(pack, org, dirn, t_max, tag):
     cl_p, real_p = wf.compact_plain(keys, counts, n1, k)
     if not (torch.equal(cl, cl_p) and torch.equal(real, real_p)):
         raise AssertionError(f"{tag}: wf_compact differs from its plain version")
+    fused = wf.cull_compact(*a_in, k)
+    if not fused_equal(fused, (cl, real, counts)):
+        raise AssertionError(f"{tag}: wf_cull_compact differs from compact(cull(...))")
+    if not fused_equal(fused, wf.cull_compact_plain(*a_in, k)):
+        raise AssertionError(f"{tag}: wf_cull_compact differs from its plain version")
     cnt = torch.clamp(real, max=k)
     t, slot = wf.mt(cl, cnt, org, dirn, tm, pack.tri_rows)
     t_p, slot_p = wf.mt_plain(cl, cnt, org, dirn, tm, pack.tri_rows)
@@ -532,6 +567,7 @@ def wf_stage_parity(pack, org, dirn, t_max, tag):
                hits=int((slot >= 0).sum()), live=int((t_max != 0).sum()),
                pairs=int(cnt.sum()), l1=float(n1.float().mean()))
     log(f"wavefront parity {tag}: {org.shape[0]} rays ({out['live']} live), A/L2 equal, "
+        f"fused A+L2 equal to L2(A) and to its plain version, "
         f"MT max |dt| {mt_err:.3e} slots equal; vs BVH8 kernel: hits {out['hits']}, "
         f"max |dt| {exact_err:.3e}, slot agreement {agree:.6f}; overflow "
         f"{out['overflow']}/{out['packets']} packets ({out['overflow'] / out['packets']:.4%}), "
@@ -564,14 +600,31 @@ def dense_parity(pack, org, dirn, t_max):
     return err
 
 
+def peak_above(fn):
+    """Device bytes `fn` allocates at its peak above what was allocated
+    before it (max_memory_allocated after reset_peak_memory_stats), its
+    result held until the peak is read.  Returns (bytes, result)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
+
+
 def wf_times(pack, org, dirn, t_max, card):
     """Each wavefront kernel and its plain version on the same inputs
     (time_ms: CUDA events around back-to-back calls), and each kernel's
     bound from what these inputs need: A slab-tests 8 rays against the 128
     cluster boxes of each live supernode slot; L2 reads each live slot's
-    kept ids; MT tests 8 rays against the 128 triangles of each listed
-    cluster.  Returns ({name: (kernel_ms, plain_ms)}, {name: (bound_ms,
-    bound_by)}, MT's inputs (cl, cnt, org, dirn, tm, tri_rows))."""
+    kept ids; A+L2 fused does A's tests and writes the row and total in
+    place of the keys; MT tests 8 rays against the 128 triangles of each
+    listed cluster.  The fused kernel and A then L2 are timed in turns
+    (A+L2 apart, fused, fused, A+L2 apart), and the peak memory of one
+    pipeline2 call, and of the stages alone from the L1's slots (A+L2 ->
+    MT against A -> L2 -> MT), in one run.  Returns ({name: (kernel_ms, plain_ms)} with "cull+compact"
+    for A then L2, {name: (bound_ms, bound_by)}, MT's inputs (cl, cnt,
+    org, dirn, tm, tri_rows), the peaks)."""
     from rust_raytracer_torch.ops import wavefront as wf
 
     S = pack.wf_sn_lo.shape[0]
@@ -589,19 +642,32 @@ def wf_times(pack, org, dirn, t_max, card):
     pairs = int(mt_in[1].sum())
     listed = mt_in[0][torch.arange(k, device=org.device)[None, :] < mt_in[1][:, None]]
     rays = n_pk * wf.R * RAY_BYTES
+    slab_ops = int(n1.sum()) * 128 * wf.R * SLAB_OPS
+    cull_in = (rays + n_pk * (k1 + 1) * 4 + int(sn_slot[live].unique().numel()) * 6 * 128 * 4
+               + S * 4)
     bounds = {
-        "wf_cull": bound(int(n1.sum()) * 128 * wf.R * SLAB_OPS,
-                         rays + n_pk * (k1 + 1) * 4 + int(sn_slot[live].unique().numel()) * 6 * 128 * 4
-                         + S * 4 + n_pk * k1 * (wf.KC + 1) * 4),
+        "wf_cull": bound(slab_ops, cull_in + n_pk * k1 * (wf.KC + 1) * 4),
+        "wf_cull_compact": bound(slab_ops, cull_in + n_pk * k1 * 4 + n_pk * (k + 1) * 4),
         "wf_compact": bound(0, int(torch.clamp(counts, max=wf.KC)[live].sum()) * 4
                             + n_pk * (k1 + 1) * 4 + n_pk * (k + 1) * 4),
         "wf_mt": bound(pairs * wf.R * 128 * MT_OPS,
                        pairs * 4 + n_pk * 4 + rays + int(listed.unique().numel()) * CLUSTER_BYTES
                        + n_pk * wf.R * HIT_BYTES),
     }
+
+    def apart():
+        return wf.compact(*wf.cull(*a_in), n1, k)
+
+    def fused():
+        return wf.cull_compact(*a_in, k)
+
+    turns = [time_ms(f) for f in (apart, fused, fused, apart)]
     times = {
         "l1": (time_ms(lambda: wf.nearest_boxes(pack.wf_sn_lo, pack.wf_sn_hi, org, dirn,
                                                 t_max, k1)), None),
+        "wf_cull_compact": ((turns[1] + turns[2]) / 2,
+                            time_ms(lambda: wf.cull_compact_plain(*a_in, k), PLAIN_REPS)),
+        "cull+compact": ((turns[0] + turns[3]) / 2, None),
         "wf_cull": (time_ms(lambda: wf.cull(*a_in)),
                     time_ms(lambda: wf.cull_plain(*a_in), PLAIN_REPS)),
         "wf_compact": (time_ms(lambda: wf.compact(keys, counts, n1, k)),
@@ -609,17 +675,49 @@ def wf_times(pack, org, dirn, t_max, card):
         "wf_mt": (time_ms(lambda: wf.mt(*mt_in)),
                   time_ms(lambda: wf.mt_plain(*mt_in), PLAIN_REPS)),
     }
+    del keys
+    names = ("wf_cull_compact", "wf_cull", "wf_compact", "wf_mt")
     log(f"time wavefront mid-render step x{org.shape[0]}: L1 (torch ops) "
         f"{times['l1'][0]:.3f} ms; " + "; ".join(
-            f"{nm} kernel {times[nm][0]:.3f} ms, plain {times[nm][1]:.3f} ms"
-            for nm in ("wf_cull", "wf_compact", "wf_mt"))
+            f"{nm} kernel {times[nm][0]:.3f} ms, plain {times[nm][1]:.3f} ms" for nm in names)
         + f" (CUDA events, mean of {KERNEL_REPS} / plain {PLAIN_REPS} calls; {card})")
+    log(f"time fused vs apart, mid-render step, in turns: wf_cull then wf_compact "
+        f"{turns[0]:.4f} ms, wf_cull_compact {turns[1]:.4f} ms, wf_cull_compact "
+        f"{turns[2]:.4f} ms, wf_cull then wf_compact {turns[3]:.4f} ms; fused / apart "
+        f"{times['wf_cull_compact'][0] / times['cull+compact'][0]:.3f} ({card})")
     log(f"wavefront counts: {n_pk} packets, live supernode slots {int(n1.sum())}, candidate "
         f"pairs {pairs}, distinct listed clusters {int(listed.unique().numel())}; bounds: "
         + "; ".join(f"{nm} {bounds[nm][0]:.4f} ms by {bounds[nm][1]} "
-                    f"({bounds[nm][0] / times[nm][0]:.2%} of the kernel's time)"
-                    for nm in ("wf_cull", "wf_compact", "wf_mt")))
-    return times, bounds, mt_in
+                    f"({bounds[nm][0] / times[nm][0]:.2%} of the kernel's time)" for nm in names))
+
+    # peak memory of one call, each above what was allocated before it;
+    # pipeline2's result must be the unfused stages' on the same L1 slots
+    def stages_fused():
+        row, total, counts = wf.cull_compact(*a_in, k)
+        return wf.mt(row, torch.clamp(total, max=k), org, dirn, tm, pack.tri_rows), counts
+
+    def stages_apart():
+        keys, counts = wf.cull(*a_in)
+        row, total = wf.compact(keys, counts, n1, k)
+        t, slot = wf.mt(row, torch.clamp(total, max=k), org, dirn, tm, pack.tri_rows)
+        return t, slot, wf.overflowed(l1_cnt, counts, total, k1, wf.KC, k), keys
+
+    peaks = {}
+    peaks["pipeline2"], got = peak_above(lambda: wf.pipeline2(
+        pack.wf_sn_lo, pack.wf_sn_hi, pack.wf_sn_start, pack.wf_sn_bounds, pack.tri_rows, org,
+        dirn, t_max))
+    peaks["A+L2 -> MT"], _ = peak_above(stages_fused)
+    peaks["A -> L2 -> MT"], want = peak_above(stages_apart)
+    if not all(torch.equal(a, b) for a, b in zip(got, want[:3])):
+        raise AssertionError("pipeline2 differs from cull -> compact -> mt on its L1 slots")
+    del got, want
+    mb = {nm: b / 1e6 for nm, b in peaks.items()}
+    log(f"peak memory above the inputs, one call at {org.shape[0]} lanes (max_memory_allocated, "
+        f"peak reset before each): pipeline2 {mb['pipeline2']:.1f} MB, its result equal to "
+        f"cull -> compact -> mt's; from the L1's slots: A+L2 -> MT {mb['A+L2 -> MT']:.1f} MB, "
+        f"A -> L2 -> MT {mb['A -> L2 -> MT']:.1f} MB (fused less unfused "
+        f"{mb['A+L2 -> MT'] - mb['A -> L2 -> MT']:.1f} MB); bytes {peaks} ({card})")
+    return times, bounds, mt_in, peaks
 
 
 def cull_adversarial(dev, n_pk=4096, k1=40, seed=5):
@@ -729,10 +827,23 @@ def mt_adversarial(pack, cl, cnt, org, dirn, tm, n_pk=4096):
             t.contiguous(), tri)
 
 
+def caps_inside_a_slot(counts, n1, kc, k):
+    """Packets whose cap k cuts a live slot's kept ids (off < k < off +
+    min(count, kc), off the slot's offset in the row): (any slot, a slot
+    past the first kept one, off > 0)."""
+    live = torch.arange(counts.shape[1], device=counts.device)[None, :] < n1[:, None]
+    c = torch.where(live, torch.clamp(counts, max=kc), 0)
+    off = torch.cumsum(c, dim=1) - c
+    inside = (off < k) & (k < off + c)
+    return int(inside.any(dim=1).sum()), int((inside & (off > 0)).any(dim=1).sum())
+
+
 def wf_adversarial(wpack, org, dirn, cl, cnt, tm, dev, card):
-    """K2a and K2c against cull_plain and mt_plain on the adversarial sets:
-    cull_adversarial, and mt_adversarial from a recorded step's rays and
-    lists (org, dirn, cl, cnt, tm).  Returns MT's max |dt|."""
+    """K2a, K2a+K2b fused and K2c against cull_plain, compact(cull(...))
+    and cull_compact_plain, and mt_plain on the adversarial sets:
+    cull_adversarial (the fused kernel at k 16 and 128), and mt_adversarial
+    from a recorded step's rays and lists (org, dirn, cl, cnt, tm).
+    Returns MT's max |dt|."""
     from rust_raytracer_torch.ops import wavefront as wf
 
     a_in = cull_adversarial(dev)
@@ -744,6 +855,22 @@ def wf_adversarial(wpack, org, dirn, cl, cnt, tm, dev, card):
         keys_p, counts_p = wf.cull_plain(*a_in, kc)
         if not (torch.equal(keys, keys_p) and torch.equal(counts, counts_p)):
             raise AssertionError(f"adversarial cull (kc {kc}): wf_cull differs from cull_plain")
+        for k in (16, 128):
+            fused = wf.cull_compact(*a_in, kc, k)
+            if not fused_equal(fused, (*wf.compact(keys, counts, a_in[1], k), counts)):
+                raise AssertionError(f"adversarial cull (kc {kc}, k {k}): wf_cull_compact "
+                                     f"differs from compact(cull(...))")
+            if not fused_equal(fused, wf.cull_compact_plain(*a_in, kc, k)):
+                raise AssertionError(f"adversarial cull (kc {kc}, k {k}): wf_cull_compact "
+                                     f"differs from cull_compact_plain")
+            cut = caps_inside_a_slot(counts, a_in[1], kc, k)
+            over = int((fused[1] > k).sum())
+            log(f"wavefront adversarial cull+compact, kc {kc}, k {k}: row, total and counts "
+                f"equal to compact(cull(...)) and to cull_compact_plain; totals over k on "
+                f"{over} packets, the cap inside a slot on {cut[0]} ({cut[1]} past the "
+                f"row's first slot)")
+            if k == 16 and not cut[1]:
+                raise AssertionError("no adversarial packet has its cap inside a later slot")
     n1 = a_in[1]
     log(f"wavefront adversarial cull: {a_in[0].shape[0]} packets (n1 = 0 on "
         f"{int((n1 == 0).sum())}, n1 = k1 on {int((n1 == a_in[0].shape[1]).sum())}), "
@@ -1109,12 +1236,14 @@ def main():
     lib = bvh8.build_library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, HERE)}")
     from rust_raytracer_torch.ops import _cuda
-    for name in ("bvh8_traverse", "threaded_traverse", "wf_cull", "wf_mt"):
+    for name in ("bvh8_traverse", "threaded_traverse", "wf_cull", "wf_cull_compact", "wf_mt"):
         a = _cuda.attributes("rrt_" + name)
         log(f"{name}_kernel: {a['registers']} registers, {a['local_bytes']} local bytes "
             f"(stack frame and spills), {a['shared_bytes']} static shared bytes a thread block")
+        if name.startswith("wf_cull") and a["local_bytes"]:
+            raise AssertionError(f"{name}_kernel spills: {a['local_bytes']} local bytes")
     sass = {}
-    for name, ops in (("wf_cull", SLAB_OPS), ("wf_mt", MT_OPS)):
+    for name, ops in (("wf_cull", SLAB_OPS), ("wf_cull_compact", SLAB_OPS), ("wf_mt", MT_OPS)):
         sass[name] = per = loop_per_test(sass_loops(lib, name + "_kernel"), name)
         if per is None:
             log(f"{name}_kernel SASS: not read (no cuobjdump, or no inner loop found)")
@@ -1263,6 +1392,8 @@ def main():
     # kernel="wavefront" render at its first, a mid-render and a drain step ----
     wf_renderer = Renderer(scene, camera, batch_size=LANES, kernel="wavefront", device=dev)
     wpack = wf_renderer.pack
+    for name in wf.KERNELS:
+        wf.launches[name] = 0
     log(f"wavefront tables: {wpack.wf_cl_lo.shape[0]} clusters, "
         f"{wpack.wf_sn_lo.shape[0]} supernodes, K1 {wf.K1}, KC {wf.KC}, "
         f"cap {wf.PAIRS_PER_PACKET_CAP}")
@@ -1291,7 +1422,7 @@ def main():
     dense_err = dense_parity(wpack, *(a[:n_dense].contiguous() for a in mid))
 
     # ---- 10. each wavefront kernel's time against its plain version's ----
-    wf_time, wf_bounds, (cl, cnt, _, _, tm, _) = wf_times(wpack, *mid, card)
+    wf_time, wf_bounds, (cl, cnt, _, _, tm, _), wf_peaks = wf_times(wpack, *mid, card)
 
     # ---- 10b. K2a and K2c on adversarial inputs, and how many of the mid
     # step's listed (ray, cluster) pairs hit the cluster's box themselves ----
@@ -1303,6 +1434,9 @@ def main():
         f"cluster's box; the rest are tested because a packet-mate's box test hit (phase "
         f"{time.perf_counter() - t0:.1f} s)")
     del mid, cl, cnt, tm
+    # the launches of phases 8-10b, where alone the standalone cull and
+    # compact run; reported apart from the main path's
+    parity_launches = dict(wf.launches)
 
     # ---- 11. the wavefront main path ----
     wf_metrics = PoolMetrics()
@@ -1315,7 +1449,9 @@ def main():
     torch.cuda.synchronize()
     wf_render_s = time.perf_counter() - t0
     wf_launches = dict(wf.launches)
-    if not (all(n == wf_metrics.steps > 0 for n in wf_launches.values())
+    want = {"wf_cull_compact": wf_metrics.steps, "wf_cull": 0, "wf_compact": 0,
+            "wf_mt": wf_metrics.steps}
+    if not (wf_metrics.steps > 0 and wf_launches == want
             and bvh8.launches == 0 and bvh8.plain_calls == 0
             and not any(wf.plain_calls.values())):
         raise AssertionError(
@@ -1337,10 +1473,10 @@ def main():
         raise AssertionError("the wavefront render disagrees with the BVH8 render")
 
     # ---- 12. where a steady wavefront pool step's device time goes ----
-    step_split(wf_renderer, camera, card, ("wf_cull_kernel", "wf_compact_kernel",
-                                           "wf_mt_kernel"))
+    step_split(wf_renderer, camera, card, ("wf_cull_compact", "wf_mt"))
     split.update(device_split("wavefront pool render", lambda: wf_renderer.render(mode="pool"),
-                              card, ("wf_cull", "wf_compact", "wf_mt")))
+                              card, ("wf_cull_compact", "wf_mt"),
+                              absent=("wf_cull", "wf_compact")))
 
     # ---- 13. the threaded walk (K3) against its plain version and the BVH8
     # kernel on 2^18 sorted primary, bounce and capped/dead rays ----
@@ -1468,16 +1604,27 @@ def main():
     # main-path run, less its launches times its bound at 2^18 rays
     excess = [("K1 bvh8_traverse, BVH8 pool render", *split["bvh8_traverse"], k1_bound[0])]
     excess += [(f"{k} {nm}, wavefront pool render", *split[nm], wf_bounds[nm][0])
-               for k, nm in zip(("K2a", "K2b", "K2c"), wf.KERNELS)]
+               for k, nm in (("K2a+K2b", "wf_cull_compact"), ("K2c", "wf_mt"))]
     excess += [(f"K3 threaded_traverse, {tag}", *v, k3_time["bounce"][3])
                for tag, v in k3_split.items()]
     excess.sort(key=lambda x: -(x[1] - x[2] * x[3]))
     log("redesign order, by measured device ms a main-path run less launches x bound: "
         + "; ".join(f"{tag} {ms:.1f} - {n} x {b:.4f} = {ms - n * b:.1f} ms"
                     for tag, ms, n, b in excess) + f" ({card})")
-    wf_err = {"wf_cull": 0, "wf_compact": 0,
+    wf_err = {"wf_cull_compact": 0, "wf_cull": 0, "wf_compact": 0,
               "wf_mt": max([dense_err, adv_err] + [st["mt_err"] for st in stage.values()])}
-    replaces = {"wf_cull": 302, "wf_compact": 386, "wf_mt": 108}
+    pwf = "rust_raytracer_tpu/ops/pallas_wavefront.py"
+    # launches: the main path's (phase 11; 0 for the standalone cull and
+    # compact); parity_launches: phases 8-10b's
+    wf_json = {
+        "wf_cull_compact": dict(source="wf_cull.cu", replaces=302, replaces_also=f"{pwf}:386",
+                                render_device_ms=split["wf_cull_compact"][0],
+                                unfused_ms=wf_time["cull+compact"][0],
+                                peak_bytes=wf_peaks),
+        "wf_cull": dict(source="wf_cull.cu", replaces=302, render_device_ms=None),
+        "wf_compact": dict(source="wf_compact.cu", replaces=386, render_device_ms=None),
+        "wf_mt": dict(source="wf_mt.cu", replaces=108, render_device_ms=split["wf_mt"][0]),
+    }
     log(f"smoke run: {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "bvh8_traverse",
@@ -1497,8 +1644,8 @@ def main():
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": f"rust_raytracer_torch/csrc/{name}.cu",
-        "replaces": f"rust_raytracer_tpu/ops/pallas_wavefront.py:{replaces[name]}",
+        "source": f"rust_raytracer_torch/csrc/{e['source']}",
+        "replaces": f"{pwf}:{e['replaces']}",
         "launches": wf_launches[name],
         "max_abs_err": wf_err[name],
         "ms": wf_time[name][0],
@@ -1506,8 +1653,9 @@ def main():
         "bound_ms": wf_bounds[name][0],
         "bound_by": wf_bounds[name][1],
         "library_ms": None,
-        "render_device_ms": split[name][0],
-    } for name in wf.KERNELS] + [{
+        "parity_launches": parity_launches[name],
+        **{key: v for key, v in e.items() if key not in ("source", "replaces")},
+    } for name, e in wf_json.items()] + [{
         "name": "threaded_traverse",
         "route": "cuda",
         "source": "rust_raytracer_torch/csrc/threaded_traverse.cu",

@@ -1,13 +1,22 @@
-// Kernel A of the two-level wavefront traversal: supernode block cull.
+// Kernel A of the two-level wavefront traversal: supernode block cull, and
+// its fusion with kernel L2 (candidate compaction).
 //
-// Replaces the Pallas TPU kernel
+// Replaces the Pallas TPU kernels
 // rust_raytracer_tpu/ops/pallas_wavefront.py:_make_cull_kernel (called from
-// _pipeline2).  It computes the same thing: for each (packet, supernode
-// slot) with slot < n1[packet], the any-hit of the packet's 8 rays against
-// the supernode's 128 cluster boxes; it writes the global ids
-// (sn_start[sn] + lane) of the first KC hit lanes in lane order, and the
-// full hit count.  Slots >= n1 get -1 keys and a count of 0 (the TPU
-// kernel leaves those rows unwritten; every reader masks them).
+// _pipeline2) and, fused, :_make_compact_kernel (called from
+// _compact_candidates).  One slab walk, two outputs:
+// - wf_cull_kernel computes what the cull kernel does: for each (packet,
+//   supernode slot) with slot < n1[packet], the any-hit of the packet's 8
+//   rays against the supernode's 128 cluster boxes; it writes the global
+//   ids (sn_start[sn] + lane) of the first KC hit lanes in lane order, and
+//   the full hit count.  Slots >= n1 get -1 keys and a count of 0 (the TPU
+//   kernel leaves those rows unwritten; every reader masks them).
+// - wf_cull_compact_kernel computes what the cull kernel then the
+//   compaction kernel do: the same counts, and in place of the keys the
+//   packet's candidate row, the first min(count, KC) ids of each live slot
+//   concatenated in slot order into k entries (-1 past the end), with the
+//   unclamped total of min(count, KC) over live slots.  The (n_pk, k1, KC)
+//   key buffer (168 MB at the pool width) and the compaction launch go.
 //
 // Design: one 128-thread block per packet, one thread per cluster lane, as
 // the TPU kernel works packet by packet.
@@ -20,17 +29,28 @@
 // - Each thread ORs the 8 slab tests; the rank of a hit lane is the
 //   popcount of the ballot below it in its warp plus the hits of the warps
 //   before it (one barrier a slot, the warp counts double-buffered).
-// - After the walk the dead slots' rows (-1 keys, 0 counts) are filled
-//   with coalesced stores.  No block is launched for dead slots alone.
-// The TPU's MXU rank matmul and packed rank-select (_rank_select4) have no
+// - The fused walk keeps the row's fill `off`: the running sum of
+//   min(count, KC), which is the offset the compaction kernel's warp scan
+//   computes.  A hit lane of rank < KC writes its id to row[off + rank]
+//   while that is below k, so a cap that falls inside a slot keeps the
+//   slot's first lanes.  `off` lives in shared memory, double-buffered as
+//   the warp counts are (lane 0 writes the next slot's after the barrier):
+//   carried in a register through the walk it spilled at 8 blocks an SM.
+//   The walk goes on past a full row, since the total and the counts must
+//   stay exact.
+// - After the walk the dead slots' rows (-1 keys, 0 counts) or the row's
+//   tail (-1) are filled with coalesced stores.  No block is launched for
+//   dead slots alone.
+// The TPU's MXU rank matmul and packed rank-select (_rank_select4), and the
+// compaction's selector matmul and radix-4 routing network, have no
 // counterpart: a warp ballot is the cheap cross-lane scan here.
 //
 // What bounds it on this card: issuing the slab tests.  A test is 12
 // float adds and multiplies, 12 min/max (which issue at half the
 // add/multiply rate) and a compare: one instruction each min/max
 // (min.NaN / max.NaN) keeps that at 25, ~38 with each slot's loads, ranks
-// and stores spread over its 8 tests.  The keys are 168 MB at the pool
-// width, ~0.05 ms of bytes.
+// and stores spread over its 8 tests.  The cull's keys are 168 MB at the
+// pool width, ~0.05 ms of bytes; the fused kernel's row is 16 MB.
 //
 // Arithmetic is the reference kernel's (its :344-361), operation for
 // operation, with min/max that propagate NaN as jnp.minimum/maximum do.
@@ -77,35 +97,43 @@ __device__ __forceinline__ Box load_box(const float* __restrict__ bounds, int sn
                __ldg(blk + 3 * WF_SN), __ldg(blk + 4 * WF_SN), __ldg(blk + 5 * WF_SN)};
 }
 
+// The walk of one packet (blockIdx.x), shared by both kernels.
 // sn_slot: (n_pk, k1) i32   L1-selected supernode per slot
 // n1:      (n_pk,) i32      live slots per packet
 // sn_start:(S,) i32         first cluster id of each supernode
 // bounds:  (S, 6, 128) f32  cluster boxes lo_xyz, hi_xyz per lane
 // org, dirn: (n_pk * 8, 3) f32;  tm: (n_pk * 8,) f32 = min(t_max, 3.4e38)
-// keys:    (n_pk, k1, kc) i32 out;  counts: (n_pk, k1) i32 out
-__global__ void __launch_bounds__(WF_SN, WF_CULL_MIN_BLOCKS)
-wf_cull_kernel(const int* __restrict__ sn_slot,
-               const int* __restrict__ n1,
-               const int* __restrict__ sn_start,
-               const float* __restrict__ bounds,
-               const float* __restrict__ org,
-               const float* __restrict__ dirn,
-               const float* __restrict__ tm,
-               int* __restrict__ keys,
-               int* __restrict__ counts,
-               int k1, int kc) {
+// counts:  (n_pk, k1) i32 out
+// kFused false: out = keys (n_pk, k1, kc) i32; total and k unused.
+// kFused true:  out = row (n_pk, k) i32; total (n_pk,) i32 out.
+template <bool kFused>
+__device__ __forceinline__ void cull_walk(const int* __restrict__ sn_slot,
+                                          const int* __restrict__ n1,
+                                          const int* __restrict__ sn_start,
+                                          const float* __restrict__ bounds,
+                                          const float* __restrict__ org,
+                                          const float* __restrict__ dirn,
+                                          const float* __restrict__ tm,
+                                          int* __restrict__ out,
+                                          int* __restrict__ counts,
+                                          int* __restrict__ total_out,
+                                          int k1, int kc, int k) {
     const int p = blockIdx.x;
     const int lane = threadIdx.x;
     const int warp = lane >> 5;
     const int wl = lane & 31;
     const int n_live = max(0, min(n1[p], k1));
     const int* slot_row = sn_slot + (size_t)p * k1;
-    int* key_blk = keys + (size_t)p * k1 * kc;
+    int* key_blk = out + (size_t)p * k1 * kc;  // kFused: unused
+    int* row = out + (size_t)p * k;            // kFused only
     int* cnt_row = counts + (size_t)p * k1;
+    __shared__ int off_s[2];  // kFused: the row's fill before slot s, at s & 1
+    int off = 0;              // kFused: the row's fill after the walk
 
     if (n_live > 0) {
         __shared__ float ray_s[WF_R][7];  // ox oy oz inv_x inv_y inv_z tm
         __shared__ int warp_hits[2][WF_SN / 32];
+        if (kFused && lane == 0) off_s[0] = 0;
         if (lane < 3 * WF_R) {
             const size_t i = (size_t)p * WF_R * 3 + lane;
             ray_s[lane / 3][lane % 3] = __ldg(org + i);
@@ -164,20 +192,70 @@ wf_cull_kernel(const int* __restrict__ sn_slot,
                 total += h;
             }
             const int rank = before + __popc(ballot & ((1u << wl) - 1u));
-            int* key_row = key_blk + (size_t)s * kc;
-            if (hit && rank < kc) key_row[rank] = base + lane;
-            if (lane >= total && lane < kc) key_row[lane] = -1;
+            if (kFused) {
+                const int off_now = off_s[s & 1];
+                if (hit && rank < kc && off_now + rank < k) row[off_now + rank] = base + lane;
+                if (lane == 0) off_s[(s + 1) & 1] = off_now + min(total, kc);
+            } else {
+                int* key_row = key_blk + (size_t)s * kc;
+                if (hit && rank < kc) key_row[rank] = base + lane;
+                if (lane >= total && lane < kc) key_row[lane] = -1;
+            }
             if (lane == 0) cnt_row[s] = total;
 
             sn_next = sn_after;
             b = nb;
             base = nbase;
         }
+        if (kFused) {
+            __syncthreads();
+            off = off_s[n_live & 1];
+        }
     }
 
-    // the dead slots' rows: -1 keys and 0 counts
-    for (int i = n_live * kc + lane; i < k1 * kc; i += WF_SN) key_blk[i] = -1;
+    if (kFused) {
+        // the row's tail, and the unclamped total
+        for (int i = min(off, k) + lane; i < k; i += WF_SN) row[i] = -1;
+        if (lane == 0) total_out[p] = off;
+    } else {
+        // the dead slots' rows: -1 keys
+        for (int i = n_live * kc + lane; i < k1 * kc; i += WF_SN) key_blk[i] = -1;
+    }
+    // the dead slots' counts: 0
     for (int s = n_live + lane; s < k1; s += WF_SN) cnt_row[s] = 0;
+}
+
+// keys: (n_pk, k1, kc) i32 out;  counts: (n_pk, k1) i32 out
+__global__ void __launch_bounds__(WF_SN, WF_CULL_MIN_BLOCKS)
+wf_cull_kernel(const int* __restrict__ sn_slot,
+               const int* __restrict__ n1,
+               const int* __restrict__ sn_start,
+               const float* __restrict__ bounds,
+               const float* __restrict__ org,
+               const float* __restrict__ dirn,
+               const float* __restrict__ tm,
+               int* __restrict__ keys,
+               int* __restrict__ counts,
+               int k1, int kc) {
+    cull_walk<false>(sn_slot, n1, sn_start, bounds, org, dirn, tm, keys, counts, nullptr,
+                     k1, kc, 0);
+}
+
+// row: (n_pk, k) i32 out;  total: (n_pk,) i32 out;  counts: (n_pk, k1) i32 out
+__global__ void __launch_bounds__(WF_SN, WF_CULL_MIN_BLOCKS)
+wf_cull_compact_kernel(const int* __restrict__ sn_slot,
+                       const int* __restrict__ n1,
+                       const int* __restrict__ sn_start,
+                       const float* __restrict__ bounds,
+                       const float* __restrict__ org,
+                       const float* __restrict__ dirn,
+                       const float* __restrict__ tm,
+                       int* __restrict__ row,
+                       int* __restrict__ total,
+                       int* __restrict__ counts,
+                       int k1, int kc, int k) {
+    cull_walk<true>(sn_slot, n1, sn_start, bounds, org, dirn, tm, row, counts, total,
+                    k1, kc, k);
 }
 
 extern "C" int rrt_wf_cull(const int* sn_slot, const int* n1, const int* sn_start,
@@ -191,14 +269,33 @@ extern "C" int rrt_wf_cull(const int* sn_slot, const int* n1, const int* sn_star
     return (int)cudaGetLastError();
 }
 
-// The kernel's registers a thread, local bytes a thread (stack frame and
+extern "C" int rrt_wf_cull_compact(const int* sn_slot, const int* n1, const int* sn_start,
+                                   const float* bounds, const float* org,
+                                   const float* dirn, const float* tm, int* row,
+                                   int* total, int* counts, int n_pk, int k1, int kc,
+                                   int k, cudaStream_t stream) {
+    if (n_pk <= 0 || k1 <= 0 || k <= 0) return 0;
+    wf_cull_compact_kernel<<<n_pk, WF_SN, 0, stream>>>(
+        sn_slot, n1, sn_start, bounds, org, dirn, tm, row, total, counts, k1, kc, k);
+    return (int)cudaGetLastError();
+}
+
+// A kernel's registers a thread, local bytes a thread (stack frame and
 // spills) and static shared bytes, as the loaded module reports them.
-extern "C" int rrt_wf_cull_attrs(int* out) {
+static int attrs(const void* kernel, int* out) {
     cudaFuncAttributes a;
-    const cudaError_t err = cudaFuncGetAttributes(&a, wf_cull_kernel);
+    const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
     if (err != cudaSuccess) return (int)err;
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
     out[2] = (int)a.sharedSizeBytes;
     return 0;
+}
+
+extern "C" int rrt_wf_cull_attrs(int* out) {
+    return attrs((const void*)wf_cull_kernel, out);
+}
+
+extern "C" int rrt_wf_cull_compact_attrs(int* out) {
+    return attrs((const void*)wf_cull_compact_kernel, out);
 }

@@ -6,14 +6,20 @@ the pipeline finds each packet's candidate clusters, then tests the
 packet's rays against every triangle of those clusters.  The two-level
 pipeline (`pipeline2`, the reference's `_pipeline2`):
 
-  L1   torch ops   slab keys of each packet against the S supernode boxes,
-                   then the k1 nearest supernodes (`nearest_boxes`)
-  A    wf_cull     per (packet, supernode slot): any-hit of the 8 rays on
-                   the supernode's 128 cluster boxes -> the first KC hit
-                   cluster ids and the hit count
-  L2   wf_compact  per packet: the slots' ids concatenated in slot order
-                   into one row of k = min(cap, k1 * KC)
-  MT   wf_mt       per packet: closest hit of its 8 rays over the row
+  L1    torch ops        slab keys of each packet against the S supernode
+                         boxes, then the k1 nearest supernodes
+                         (`nearest_boxes`)
+  A+L2  wf_cull_compact  per packet, over its supernode slots in slot order:
+                         any-hit of the 8 rays on the supernode's 128 cluster
+                         boxes -> the slot's hit count, and its first KC hit
+                         cluster ids appended to one row of
+                         k = min(cap, k1 * KC)
+  MT    wf_mt            per packet: closest hit of its 8 rays over the row
+
+A+L2 is the reference's kernels A and L2 fused into one walk
+(`cull_compact`); each also stands alone (`cull`: the (n_pk, k1, KC) key
+buffer and the counts; `compact`: the row from them), which the parity
+checks hold the fused kernel against.
 
 The dense `pipeline` (the reference's `_pipeline`) culls every cluster box
 in torch ops, keeps the k nearest and reaches the same MT kernel; it runs
@@ -54,7 +60,7 @@ BIG = 3.4e38
 T_MIN_STATIC = 1e-3         # reference: camera.rs:294 interval lower bound
 _INT_MAX = 0x7FFFFFFF
 
-KERNELS = ("wf_cull", "wf_compact", "wf_mt")
+KERNELS = ("wf_cull_compact", "wf_cull", "wf_compact", "wf_mt")
 launches = dict.fromkeys(KERNELS, 0)
 plain_calls = dict.fromkeys(KERNELS, 0)
 
@@ -170,6 +176,15 @@ def compact_plain(keys, counts, n1, k):
     return out[:, :k], total
 
 
+def cull_compact_plain(sn_slot, n1, sn_start, sn_bounds, org, dirn, tm, kc, k):
+    """Kernels A and L2 fused, plain version: (row (n_pk, k) int32, total
+    (n_pk,) int32, counts (n_pk, k1) int32) — compact_plain's row and
+    total over cull_plain's keys, and cull_plain's counts."""
+    keys, counts = cull_plain(sn_slot, n1, sn_start, sn_bounds, org, dirn, tm, kc)
+    row, total = compact_plain(keys, counts, n1, k)
+    return row, total, counts
+
+
 # ---------------------------------------------------------------- MT
 
 def mt_plain(cl, cnt, org, dirn, tm, tri_rows):
@@ -250,6 +265,28 @@ def cull(sn_slot, n1, sn_start, sn_bounds, org, dirn, tm, kc):
     return keys, counts
 
 
+def cull_compact(sn_slot, n1, sn_start, sn_bounds, org, dirn, tm, kc, k):
+    """Kernels A and L2 fused (csrc/wf_cull.cu:wf_cull_compact_kernel;
+    reference pallas_wavefront.py:302 and :386): see cull_compact_plain
+    for the contract."""
+    i32, f32 = torch.int32, torch.float32
+    if not 0 < kc <= SN:
+        raise ValueError(f"kc must be in 1..{SN}, got {kc}")
+    if not 0 < k:
+        raise ValueError(f"k must be positive, got {k}")
+    route = _route("wf_cull_compact", org, (sn_slot, i32), (n1, i32), (sn_start, i32),
+                   (sn_bounds, f32), (org, f32), (dirn, f32), (tm, f32))
+    if route == "cpu":
+        return cull_compact_plain(sn_slot, n1, sn_start, sn_bounds, org, dirn, tm, kc, k)
+    n_pk, k1 = sn_slot.shape
+    row = torch.empty((n_pk, k), dtype=i32, device=org.device)
+    total = torch.empty((n_pk,), dtype=i32, device=org.device)
+    counts = torch.empty((n_pk, k1), dtype=i32, device=org.device)
+    _launch("wf_cull_compact", (sn_slot, n1, sn_start, sn_bounds, org, dirn, tm),
+            (row, total, counts), (n_pk, k1, kc, k))
+    return row, total, counts
+
+
 def compact(keys, counts, n1, k):
     """Kernel L2 (csrc/wf_compact.cu; reference pallas_wavefront.py:386):
     see compact_plain for the contract."""
@@ -293,9 +330,8 @@ def pipeline2(sn_lo, sn_hi, sn_start, sn_bounds, tri_rows, org, dirn, t_max, *,
     sn_slot, l1_cnt = nearest_boxes(sn_lo, sn_hi, org, dirn, t_max, k1)
     n1 = torch.clamp(l1_cnt, max=k1)
     tm = torch.clamp(t_max, max=BIG)
-    keys, counts = cull(sn_slot, n1, sn_start, sn_bounds, org, dirn, tm, kc)
     k = min(cap, k1 * kc)
-    cl, real = compact(keys, counts, n1, k)
+    cl, real, counts = cull_compact(sn_slot, n1, sn_start, sn_bounds, org, dirn, tm, kc, k)
     t, slot = mt(cl, torch.clamp(real, max=k), org, dirn, tm, tri_rows)
     return t, slot, overflowed(l1_cnt, counts, real, k1, kc, k)
 

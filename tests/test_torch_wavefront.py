@@ -5,8 +5,9 @@ Pallas kernels run in interpret mode, on inputs made from numpy seeds.
 Bounds, and why:
 
 - L1 keys, kernel A keys and counts (live slots), kernel L2 rows and
-  totals, the top-k slot order and the overflow counts: equal.  No FMA can
-  form in the slab test ((a - b) * c), so XLA and torch agree bit for bit.
+  totals, the fused A+L2 rows, totals and counts, the top-k slot order and
+  the overflow counts: equal.  No FMA can form in the slab test
+  ((a - b) * c), so XLA and torch agree bit for bit.
 - MT and whole pipelines: equal hit masks, t within rtol 2e-5 / atol 1e-6
   and slot agreement >= 0.999 (tests/test_pallas.py's bounds): XLA on the
   CPU contracts the Möller–Trumbore products into FMAs, torch does not
@@ -265,18 +266,12 @@ def _old_nan_max(a, b):
     return np.where((a > b) | np.isnan(a), a, b)
 
 
-@pytest.mark.parametrize("kc", [4, 32])
-def test_cull_edge_rows(kc):
-    """Kernel A on rows the one-block-a-packet kernel treats apart: n1 = 0
-    and n1 = k1, a supernode repeated across slots, and rays with a +-0
-    direction component whose origin lies on a flat box's plane (a NaN
-    slab: 0 * inf).  The plain version equals JAX's interpret-mode kernel
-    on live rows and writes -1 / 0 on dead ones.  Premise of the kernel's
-    one-instruction min.NaN / max.NaN: NaN-propagating min/max (np.minimum)
-    give the hit bits of the three-instruction nan_min / nan_max; both
-    differ from NaN-dropping ones (np.fmin) here, so the NaN path decides
-    hits; and near is T_MIN or more (or NaN), so the sign of a zero never
-    decides one."""
+def _edge_rows():
+    """Kernel A's inputs on 128 packets over 4 synthetic supernodes (k1 =
+    8): n1 = 0 and n1 = k1 rows, a supernode repeated across slots, flat
+    boxes with rays on their planes whose direction has a +-0 component (a
+    NaN slab), dead and capped lanes.  Returns (sn_slot, n1, sn_start,
+    bounds, org, dirn, t_max, tm) as numpy arrays."""
     rng = np.random.default_rng(17)
     S, k1, n_pk, planes = 4, 8, 128, np.array([0.0, 0.5], np.float32)
     lo = np.round(rng.uniform(-1, 1, (S, 3, 128)) * 16) / 16
@@ -300,12 +295,26 @@ def test_cull_edge_rows(kc):
     sn_slot[:32:2], sn_slot[1:32:2] = 3, [2, 2, 3, 3, 2, 3, 3, 2]  # repeated supernodes
     n1 = rng.integers(0, k1 + 1, n_pk).astype(np.int32)
     n1[::4], n1[1::4] = 0, k1
+    return sn_slot, n1, np.arange(S, dtype=np.int32) * 128, bounds, org, dirn, t_max, tm
 
+
+@pytest.mark.parametrize("kc", [4, 32])
+def test_cull_edge_rows(kc):
+    """Kernel A on rows the one-block-a-packet kernel treats apart: n1 = 0
+    and n1 = k1, a supernode repeated across slots, and rays with a +-0
+    direction component whose origin lies on a flat box's plane (a NaN
+    slab: 0 * inf).  The plain version equals JAX's interpret-mode kernel
+    on live rows and writes -1 / 0 on dead ones.  Premise of the kernel's
+    one-instruction min.NaN / max.NaN: NaN-propagating min/max (np.minimum)
+    give the hit bits of the three-instruction nan_min / nan_max; both
+    differ from NaN-dropping ones (np.fmin) here, so the NaN path decides
+    hits; and near is T_MIN or more (or NaN), so the sign of a zero never
+    decides one."""
+    sn_slot, n1, sn_start, bounds, org, dirn, t_max, tm = _edge_rows()
+    S, k1 = bounds.shape[0], sn_slot.shape[1]
     keys, counts = (x.numpy() for x in twf.cull(
-        *(torch.from_numpy(a) for a in (sn_slot, n1, np.arange(S, dtype=np.int32) * 128,
-                                        bounds, org, dirn, tm)), kc))
-    jp = SimpleNamespace(wf_sn_lo=jnp.zeros((S, 3)),
-                         wf_sn_start=jnp.asarray(np.arange(S, dtype=np.int32) * 128),
+        *(torch.from_numpy(a) for a in (sn_slot, n1, sn_start, bounds, org, dirn, tm)), kc))
+    jp = SimpleNamespace(wf_sn_lo=jnp.zeros((S, 3)), wf_sn_start=jnp.asarray(sn_start),
                          wf_sn_bounds=jnp.asarray(bounds))
     want_keys, want_cnt = _jax_cull(jp, sn_slot, n1, jnp.asarray(org), jnp.asarray(dirn),
                                     jnp.asarray(t_max), k1, kc)
@@ -387,6 +396,91 @@ def test_compact_matches_jax_and_oracle(k1):
                                              jnp.asarray(n1), k, True)
     np.testing.assert_array_equal(np.asarray(j_out), want)
     np.testing.assert_array_equal(np.asarray(j_total), want_total)
+
+
+# ---------------------------------------------------------------- A + L2 fused
+
+def _caps_inside_a_slot(counts, n1, kc, k):
+    """(P, k1) bool: the live slots whose kept ids the cap k cuts, off < k
+    < off + min(count, kc), and (P, k1) int: each slot's offset off in the
+    row."""
+    live = np.arange(counts.shape[1])[None, :] < n1[:, None]
+    c = np.where(live, np.minimum(counts, kc), 0)
+    off = np.cumsum(c, axis=1) - c
+    return (off < k) & (k < off + c), off
+
+
+@pytest.mark.parametrize("name,kc,cap", [("soup", 32, 128), ("soup", 4, 128),
+                                         ("mini_dragon", 32, 128), ("multi", 32, 128),
+                                         ("mini_dragon", 32, 4)])
+def test_cull_compact_matches_jax(packs, name, kc, cap):
+    """Kernels A and L2 fused, on the L1's slots, at the pipeline's k =
+    min(cap, k1 * kc), against JAX's kernel A then its L2 (both in
+    interpret mode): equal rows and totals, equal counts on live slots and
+    0 on dead ones.  At cap 4 the cap cuts a slot's kept ids in some
+    packets."""
+    jp, tp = packs[name]
+    org, dirn = (_pad(a, 1024, 1.0) for a in _rays(name))
+    t_max = _pad(_tmax(tp, org[:N], dirn[:N]), 1024, 0.0)
+    S = jp.wf_sn_lo.shape[0]
+    k1 = min(twf.K1, -(-S // 8) * 8)
+    k = min(cap, k1 * kc)
+    to, td, tt = (torch.from_numpy(a) for a in (org, dirn, t_max))
+    sn_slot, l1_cnt = twf.nearest_boxes(tp.wf_sn_lo, tp.wf_sn_hi, to, td, tt, k1)
+    n1 = torch.clamp(l1_cnt, max=k1)
+    calls = twf.plain_calls["wf_cull_compact"]
+    row, total, counts = (x.numpy() for x in twf.cull_compact(
+        sn_slot, n1, tp.wf_sn_start, tp.wf_sn_bounds, to, td, torch.clamp(tt, max=twf.BIG),
+        kc, k))
+    assert twf.plain_calls["wf_cull_compact"] == calls + 1
+    sn_slot, n1 = sn_slot.numpy(), n1.numpy()
+    want_keys, want_cnt = _jax_cull(jp, sn_slot, n1, jnp.asarray(org), jnp.asarray(dirn),
+                                    jnp.asarray(t_max), k1, kc)
+    want_row, want_total = pwf._compact_candidates(jnp.asarray(want_keys), jnp.asarray(want_cnt),
+                                                   jnp.asarray(n1), k, True)
+    np.testing.assert_array_equal(row, np.asarray(want_row))
+    np.testing.assert_array_equal(total, np.asarray(want_total))
+    live = np.arange(k1)[None, :] < n1[:, None]
+    np.testing.assert_array_equal(counts[live], want_cnt[live])
+    assert (counts[~live] == 0).all() and (total > 0).any()
+    inside, _ = _caps_inside_a_slot(counts, n1, kc, k)
+    assert inside.any() == (cap == 4)
+
+
+@pytest.mark.parametrize("kc,k", [(4, 16), (4, 128), (32, 16), (32, 128)])
+def test_cull_compact_edge_rows(kc, k):
+    """Kernels A and L2 fused on _edge_rows' inputs (n1 = 0 and n1 = k1
+    rows, NaN slabs, repeated supernodes) against compact(*cull(...)), and
+    against the compaction oracle and JAX's L2 (interpret mode; its row
+    is at most k1 * kc wide, the port's is -1 past that) over cull's keys:
+    equal rows, totals and counts.  A packet with n1 = 0 gets an all -1
+    row, total 0 and zero counts.  At k = 16 the cap cuts a slot's kept
+    ids after an earlier slot's (off > 0), and totals pass k."""
+    sn_slot, n1, sn_start, bounds, org, dirn, t_max, tm = _edge_rows()
+    args = [torch.from_numpy(a) for a in (sn_slot, n1, sn_start, bounds, org, dirn, tm)]
+    row, total, counts = (x.numpy() for x in twf.cull_compact(*args, kc, k))
+    keys, want_cnt = twf.cull(*args, kc)
+    want_row, want_total = twf.compact(keys, want_cnt, args[1], k)
+    np.testing.assert_array_equal(row, want_row.numpy())
+    np.testing.assert_array_equal(total, want_total.numpy())
+    np.testing.assert_array_equal(counts, want_cnt.numpy())
+    keys = keys.numpy()
+    o_row, o_total = _compact_oracle(keys, counts, n1, k)
+    np.testing.assert_array_equal(row, o_row)
+    np.testing.assert_array_equal(total, o_total)
+    kj = min(k, keys.shape[1] * kc)
+    j_row, j_total = pwf._compact_candidates(jnp.asarray(keys), jnp.asarray(counts),
+                                             jnp.asarray(n1), kj, True)
+    np.testing.assert_array_equal(row[:, :kj], np.asarray(j_row))
+    assert (row[:, kj:] == -1).all()
+    np.testing.assert_array_equal(total, np.asarray(j_total))
+
+    dead, full = n1 == 0, n1 == sn_slot.shape[1]
+    assert dead.any() and full.any()
+    assert (row[dead] == -1).all() and (total[dead] == 0).all() and (counts[dead] == 0).all()
+    inside, off = _caps_inside_a_slot(counts, n1, kc, k)
+    assert (inside & (off > 0)).any() == (k == 16)
+    assert (total > k).any() == (k == 16)
 
 
 # ---------------------------------------------------------------- MT
@@ -603,9 +697,8 @@ def test_overflow_matches_jax(packs, jax_caps, cause):
     k = min(caps.get("cap", twf.PAIRS_PER_PACKET_CAP), k1 * kc)
     sn_slot, l1_cnt = twf.nearest_boxes(tp.wf_sn_lo, tp.wf_sn_hi, o, d, tm, k1)
     n1 = torch.clamp(l1_cnt, max=k1)
-    keys, counts = twf.cull(sn_slot, n1, tp.wf_sn_start, tp.wf_sn_bounds, o, d,
-                            torch.clamp(tm, max=twf.BIG), kc)
-    _, real = twf.compact(keys, counts, n1, k)
+    _, real, counts = twf.cull_compact(sn_slot, n1, tp.wf_sn_start, tp.wf_sn_bounds, o, d,
+                                       torch.clamp(tm, max=twf.BIG), kc, k)
     live = torch.arange(k1)[None, :] < n1[:, None]
     fired = {"supernodes": int((l1_cnt > k1).sum()),
              "block": int(((counts > kc) & live).any(dim=1).sum()),
@@ -656,7 +749,15 @@ def test_wrappers_check_inputs(packs):
         twf.cull(sn_slot.long(), n1, tp.wf_sn_start, tp.wf_sn_bounds, org, dirn, tm, 32)
     with pytest.raises(TypeError):
         twf.mt(sn_slot, n1, org.double(), dirn, tm, tp.tri_rows)
+    with pytest.raises(ValueError, match="kc"):
+        twf.cull_compact(sn_slot, n1, tp.wf_sn_start, tp.wf_sn_bounds, org, dirn, tm, 0, 16)
+    with pytest.raises(ValueError, match="k must"):
+        twf.cull_compact(sn_slot, n1, tp.wf_sn_start, tp.wf_sn_bounds, org, dirn, tm, 32, 0)
+    with pytest.raises(TypeError):
+        twf.cull_compact(sn_slot, n1.long(), tp.wf_sn_start, tp.wf_sn_bounds, org, dirn, tm,
+                         32, 16)
     before = dict(twf.launches)
+    twf.cull_compact(sn_slot, n1, tp.wf_sn_start, tp.wf_sn_bounds, org, dirn, tm, 32, 16)
     twf.mt(sn_slot, n1, org, dirn, tm, tp.tri_rows)
     assert twf.launches == before  # a CPU tensor never counts a launch
     # no wavefront tables: an explicit "wavefront" raises, as in JAX
@@ -672,7 +773,8 @@ def test_wrappers_check_inputs(packs):
 
 def test_pool_render_wavefront_matches_bvh8_and_jax():
     """mini_dragon 32x32, 4 spp, depth 8 through the pool with
-    kernel="wavefront" on the CPU: no overflow (12 clusters in one
+    kernel="wavefront" on the CPU: each step runs the fused cull+compact
+    and MT once and neither standalone stage, no overflow (12 clusters in one
     supernode), the port's BVH8 render's image, and the JAX exact render's
     within test_torch_render.py's bounds."""
     scene = mini_dragon_scene(tg)
@@ -684,7 +786,9 @@ def test_pool_render_wavefront_matches_bvh8_and_jax():
     metrics = tpool.PoolMetrics()
     got = TRenderer(scene, cam, batch_size=lanes, kernel="wavefront",
                     device="cpu").render(mode="pool", metrics=metrics).hdr()
-    assert all(twf.plain_calls[k] == calls[k] + metrics.steps for k in twf.KERNELS)
+    called = {k: twf.plain_calls[k] - calls[k] for k in twf.KERNELS}
+    assert metrics.steps > 0 and called == {"wf_cull_compact": metrics.steps, "wf_cull": 0,
+                                            "wf_compact": 0, "wf_mt": metrics.steps}, called
     assert metrics.overflow == 0 and metrics.total_packets == (lanes // 8) * metrics.steps
     exact = TRenderer(scene, cam, batch_size=lanes, kernel="auto", device="cpu")
     np.testing.assert_array_equal(got, exact.render(mode="pool").hdr())
