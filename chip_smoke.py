@@ -41,6 +41,21 @@ gradients of every float scene table) with remat "none" and "hits", its
 rate and peak memory, its gradients against the BVH8 walk's; and a small
 gradient on the card against the same on the CPU.
 
+Then volumes, the CLI and checkpoint/resume: cornell_smoke (two box
+volumes) at 64x64 on the card against the CPU; 2^18 random rays through `intersect` and
+`hit_attributes` on cornell_smoke with a sphere, a sheared-box and a
+352-triangle mesh volume added (every boundary kind), card against CPU,
+with its time, its peak memory and each volume's span time;
+cornell_dragon with a fog sphere through the pool at the main path's
+size (K1 every step, lanes stopping in the volume); the CLI
+(`utils/cli.py:main`, with `--metrics=1`) on cornell_smoke at its own
+600x600 and on cornell_dragon at 1200x1200, 1 spp, depth 20 (rc 0, the PNG,
+the metrics line; K1 launches = pool steps); and the resumable pool on
+the card, interrupted and resumed (lane state equal bit for bit, image
+within float sum order; the checkpoint's save time and size at 2^18
+lanes).  The BVH8 and wavefront pool steps must launch the kernels
+STEP_LAUNCHES counts (the wavefront step within STEP_SLACK).
+
 K1 and K3 test a leaf with the whole warp (rust_raytracer_torch/csrc/
 traverse_common.cuh:warp_leaf_test).  Beside each of
 their times the smoke prints the counts that design answers to, from the
@@ -75,6 +90,8 @@ Requires CUDA (exits non-zero without printing a result otherwise).  Nothing
 of JAX or of the JAX reference package is imported: `jax` is blocked at the
 top of this script and `rust_raytracer_tpu` is checked at the end.
 """
+import contextlib
+import io
 import json
 import os
 import re
@@ -99,6 +116,14 @@ SLAB_OPS, MT_OPS = 25, 56      # operations of one slab test, one Möller–Trum
 RAY_BYTES, HIT_BYTES = 28, 8   # org, dirn, t_max in; t, slot out
 CLUSTER_BYTES = 128 * 48       # one cluster's triangle rows
 KERNEL_REPS, PLAIN_REPS = 50, 3
+# kernels a steady cornell_dragon pool step launches, as measured on the H100
+# since the wavefront cull and compact were fused: a scene without volumes
+# adds none to them (one volume adds tens of kernels to a step), and the
+# metrics recorder none at all.  The BVH8 step's count is exact; the
+# wavefront step's mean over five steps read 1737.8-1739.0 across runs of
+# one tree, so it is held within STEP_SLACK of its count.
+STEP_LAUNCHES = {"auto": 1667, "wavefront": 1738}
+STEP_SLACK = {"auto": 0, "wavefront": 2}
 
 
 def log(*a):
@@ -292,6 +317,11 @@ def compare(pack, org, dirn, tag, t_max=None, quiet=False):
     return max_err, agree, n_hit, (t_k, i_k)
 
 
+def occupancy(metrics):
+    """Mean share of the pool's lanes live at a poll, from a RenderMetrics."""
+    return metrics.summary()["mean_occupancy"] / LANES
+
+
 def time_ms(fn, reps=KERNEL_REPS):
     """ms a call of `fn`: CUDA events around `reps` back-to-back calls
     after a warm-up call, divided by `reps`."""
@@ -353,7 +383,8 @@ def step_split(renderer, camera, card, names, warm=10, steps=5):
     traversal kernel (`names`: its `__global__` name less `_kernel`,
     matched whole).  The profiler
     slows the host, so device busy time is read against the unprofiled
-    wall time."""
+    wall time.  Raises unless the profiled steps' mean launches a step is
+    within STEP_SLACK[kernel] of STEP_LAUNCHES[kernel]."""
     from torch.profiler import ProfilerActivity, profile
 
     from rust_raytracer_torch.render import pool as poolmod
@@ -394,6 +425,9 @@ def step_split(renderer, camera, card, names, warm=10, steps=5):
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
             f"x{e.count // steps:<4d} {e.key[:90]}")
+    if abs(n_launch - STEP_LAUNCHES[renderer.kernel]) > STEP_SLACK[renderer.kernel]:
+        raise AssertionError(f"a {renderer.kernel} pool step launched {n_launch} kernels, not "
+                             f"{STEP_LAUNCHES[renderer.kernel]}")
 
 
 def device_split(tag, fn, card, names, absent=()):
@@ -1206,6 +1240,316 @@ def probe_grads(scene, camera, fields, device):
     return {f: g.detach().cpu() for f, g in zip(fields, grads)}
 
 
+# ---------------------------------------------------------------- volumes, CLI, resume
+
+def uv_sphere_mesh(g, center, r, rings, segs, material):
+    """A convex triangle mesh on a sphere: `rings` latitude bands of `segs`
+    segments, fans at the poles (2 * segs * (rings - 1) triangles)."""
+    th = np.linspace(0.0, np.pi, rings + 1)[1:-1]
+    ph = np.linspace(0.0, 2.0 * np.pi, segs, endpoint=False)
+    ring = np.stack([np.outer(np.sin(th), np.cos(ph)), np.repeat(np.cos(th)[:, None], segs, 1),
+                     np.outer(np.sin(th), np.sin(ph))], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0, 1, 0]], ring, [[0, -1, 0]]]) * r + np.asarray(center, float)
+    top, bot = 0, len(verts) - 1
+    faces = []
+    for j in range(segs):
+        k = (j + 1) % segs
+        faces.append((top, 1 + k, 1 + j))
+        faces.append((bot, 1 + (rings - 2) * segs + j, 1 + (rings - 2) * segs + k))
+        for i in range(rings - 2):
+            a, b = 1 + i * segs + j, 1 + i * segs + k
+            faces += [(a, b, b + segs), (a, b + segs, a + segs)]
+    faces = np.asarray(faces)
+    tris = np.stack([faces, np.zeros_like(faces), np.full_like(faces, -1)], -1).astype(np.int32)
+    return g.Mesh(vertices=verts, normals=np.zeros((0, 3)), uvs=np.zeros((0, 2)),
+                  triangles=tris, material=material)
+
+
+def volume_kinds_scene(g, smoke):
+    """cornell_smoke (two oriented boxes) with a sphere volume, a sheared
+    box (12 triangles) and a 352-triangle sphere mesh added: every boundary
+    kind, and a mesh block of the few hundred triangles whose span runs in
+    chunks at 2^18 rays."""
+    white = g.Lambertian(g.Constant((0.73, 0.73, 0.73)))
+    iso = g.Isotropic(g.Constant((0.9, 0.9, 0.9)))
+    shear = g.Transform(g.Box((0, 0, 0), (10.0, 10.0, 10.0), white))
+    shear.rotate_z(30).scale(1.5, 1.0, 1.0).translate(-12.0, 12.0, -5.0)
+    extra = [g.Volume(g.Sphere((12.0, 14.0, 0.0), 7.0, white), iso, 0.1),
+             g.Volume(shear, iso, 0.1),
+             g.Volume(uv_sphere_mesh(g, (0.0, -5.0, 10.0), 8.0, 12, 16, white), iso, 0.1)]
+    return g.SceneDef(world=g.Group(list(smoke.world.items) + extra), lights=smoke.lights,
+                      config=dict(smoke.config))
+
+
+def volume_intersect_parity(scene, dev, card):
+    """2^18 random rays through `intersect` and `hit_attributes` on the card
+    and on the CPU: kind and prim agree on >= 0.999 of rays, t within rtol
+    1e-5 / atol 1e-4 and pos within rtol 1e-5 / atol 1e-3 (a scene of scale
+    30) where they agree, mat, valid and front_face equal.  Prints the
+    intersect time and its peak memory above its inputs, and each
+    volume's span time, on the card."""
+    from rust_raytracer_torch.core import rng as vrng
+    from rust_raytracer_torch.ops import intersect as isect
+    from rust_raytracer_torch.scene import compiler
+    from rust_raytracer_torch.scene import pack as sp
+
+    r = np.random.default_rng(7)
+    org = r.uniform(-27.0, 27.0, (LANES, 3)).astype(np.float32)
+    dirn = r.normal(size=(LANES, 3)).astype(np.float32)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        pack, _ = compiler.compile_scene(scene, d)
+        o, di = torch.from_numpy(org).to(d), torch.from_numpy(dirn).to(d)
+        ctx = vrng.Ctx(torch.arange(LANES, device=d), torch.zeros(LANES, dtype=torch.int64,
+                                                                  device=d), 2, 0)
+        hit = isect.intersect(pack, o, di, 1e-3, ctx)
+        attr = isect.hit_attributes(pack, o, di, hit)
+        out.append((hit._replace(**{f: getattr(hit, f).cpu() for f in hit._fields}),
+                    attr._replace(**{f: getattr(attr, f).cpu() for f in attr._fields})))
+        if len(out) == 1:  # on the card
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            isect.intersect(pack, o, di, 1e-3, ctx)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ms = time_ms(lambda: isect.intersect(pack, o, di, 1e-3, ctx), reps=10)
+            spans = [(pack.vol_kinds[vi], int((pack.vol_tri_e1[vi] != 0).any(dim=1).sum()), time_ms(
+                lambda: isect._volume_boundary_span(pack, o, di, vi), reps=10))
+                for vi in range(len(pack.vol_kinds))]
+    (h_g, a_g), (h_c, a_c) = out
+    agree = (h_g.kind == h_c.kind) & (h_g.prim == h_c.prim)
+    share = agree.double().mean().item()
+    vol = h_c.kind == sp.PRIM_VOLUME
+    per_vol = torch.bincount(h_c.prim[vol].long(), minlength=len(spans)).tolist()
+    t_g, t_c = h_g.t[agree], h_c.t[agree]
+    fin = torch.isfinite(t_c)
+    if not (share >= 0.999 and torch.equal(torch.isfinite(t_g), fin)
+            and torch.allclose(t_g[fin], t_c[fin], rtol=1e-5, atol=1e-4)
+            and torch.allclose(a_g.pos[agree], a_c.pos[agree], rtol=1e-5, atol=1e-3)
+            and all(torch.equal(getattr(a_g, f)[agree], getattr(a_c, f)[agree])
+                    for f in ("mat", "valid", "front_face"))
+            and min(per_vol) > 0):
+        raise AssertionError(f"volume intersect card vs cpu: agreement {share}, volume hits "
+                             f"{per_vol}")
+    dt = (t_g[fin] - t_c[fin]).abs().max().item()
+    names = {sp.VOL_SPHERE: "sphere", sp.VOL_BOX: "box", sp.VOL_MESH: "mesh"}
+    log(f"volume intersect card vs cpu, {LANES} rays, cornell_smoke + 3 volumes: kind and prim "
+        f"agree on {share:.6f}, max |dt| {dt:.3e}, volume hits per volume {per_vol}")
+    log(f"volume intersect on the card: {ms:.3f} ms a call of {LANES} rays (CUDA events, mean "
+        f"of 10), peak {peak} bytes above its inputs; spans: " + ", ".join(
+            f"{names[k]}{f' ({tb} triangles)' if k == sp.VOL_MESH else ''} {t:.3f} ms"
+            for k, tb, t in spans) + f" ({card})")
+    return {"ms": ms, "peak": peak, "spans": spans}
+
+
+def fog_pool_render(scene, camera, dev, card):
+    """cornell_dragon with one fog sphere (the port's graph) through the
+    pool at the main path's size: K1 launches every step and no plain
+    walk runs, lanes stop in the volume, the image is finite."""
+    from rust_raytracer_torch.ops import bvh8
+    from rust_raytracer_torch.ops import intersect as isect
+    from rust_raytracer_torch.render.renderer import Renderer
+    from rust_raytracer_torch.scene import graph as g
+    from rust_raytracer_torch.scene import pack as sp
+    from rust_raytracer_torch.utils.metrics import RenderMetrics
+
+    white = g.Lambertian(g.Constant((0.73, 0.73, 0.73)))
+    fog = g.Volume(g.Sphere((150.0, 120.0, 150.0), 100.0, white),
+                   g.Isotropic(g.Constant((1.0, 1.0, 1.0))), 0.01)
+    fog_scene = g.SceneDef(world=g.Group(list(scene.world.items) + [fog]),
+                           lights=scene.lights, config=dict(scene.config))
+    renderer = Renderer(fog_scene, camera, batch_size=LANES, device=dev)
+    hits, real = [], isect.intersect
+
+    def counting(*a, **k):
+        out = real(*a, **k)
+        hits.append((out[0].kind == sp.PRIM_VOLUME).sum())
+        return out
+
+    metrics = RenderMetrics()
+    torch.cuda.synchronize()
+    bvh8.launches = bvh8.plain_calls = 0
+    isect.intersect = counting
+    try:
+        t0 = time.perf_counter()
+        film = renderer.render(mode="pool", metrics=metrics)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        isect.intersect = real
+    vol_hits = int(torch.stack(hits).sum())
+    hdr = film.hdr()
+    if not (bvh8.launches == metrics.steps == len(hits) > 0 and bvh8.plain_calls == 0
+            and vol_hits > 0 and np.isfinite(hdr).all() and hdr.mean() > 0):
+        raise AssertionError(f"fog pool render: K1 launches {bvh8.launches}, steps "
+                             f"{metrics.steps}, volume hits {vol_hits}")
+    film.save(os.path.join(HERE, "build", "chip_smoke_cornell_dragon_fog.png"))
+    total = camera.image_width * camera.image_height * SPP
+    log(f"fog pool render: cornell_dragon + a fog sphere, {camera.image_width}x"
+        f"{camera.image_height}@{SPP}spp depth {DEPTH}, {LANES} lanes: {total / secs:.1f} "
+        f"pixel-samples/s ({secs:.3f} s), {metrics.steps} steps, K1 launches {bvh8.launches}, "
+        f"plain calls 0, {vol_hits} lane-bounces stopped in the volume ({card})")
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return tuple(int.from_bytes(head[i:i + 4], "big") for i in (16, 20))
+
+
+def cli_render(argv, spp, dev, card):
+    """`cli.main(argv)` on the card with --metrics=1: rc 0, one metrics
+    line whose samples_issued is the image's pixel-samples (`spp` a
+    pixel), and the PNG.
+    Returns the metrics summary and the launches of each traversal
+    kernel in the run (counts set to 0 just before)."""
+    from rust_raytracer_torch.ops import bvh8, threaded
+    from rust_raytracer_torch.ops import wavefront as wf
+    from rust_raytracer_torch.utils import cli
+
+    out = os.path.join(HERE, "build", f"chip_smoke_cli_{argv[0]}.png")
+    if os.path.exists(out):
+        os.unlink(out)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    bvh8.launches = bvh8.plain_calls = threaded.launches = threaded.plain_calls = 0
+    for name in wf.KERNELS:
+        wf.launches[name], wf.plain_calls[name] = 0, 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv) + ["--metrics=1", f"-o={out}"], device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"bvh8_traverse": bvh8.launches, "threaded_traverse": threaded.launches,
+                **{k: v for k, v in wf.launches.items()}}
+    plain = bvh8.plain_calls + threaded.plain_calls + sum(wf.plain_calls.values())
+    lines = [json.loads(x)["render_metrics"] for x in buf.getvalue().splitlines()
+             if x.startswith('{"render_metrics"')]
+    w, h = png_size(out)
+    if not (rc == 0 and len(lines) == 1 and plain == 0
+            and lines[0]["samples_issued"] == lines[0]["pixel_samples"] == w * h * spp):
+        raise AssertionError(f"cli {argv}: rc {rc}, metrics {lines}, png {w}x{h}, plain {plain}")
+    m = lines[0]
+    log(f"cli {' '.join(argv)} --metrics=1 on the card: rc 0, {w}x{h} PNG, "
+        f"{m['samples_issued']} samples issued, {m['steps']} steps, "
+        f"{m['pixel_samples_per_s']:.1f} pixel-samples/s in the metrics line, "
+        f"{secs:.2f} s for main() with the scene build, launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({card})")
+    log("cli metrics line: " + json.dumps({"render_metrics": m}))
+    return m, launches
+
+
+def resume_check(pack, static, scene, dev, card, width=600):
+    """The resumable pool on the card: 20 steps, a checkpoint at 2^18 lanes
+    (its save time and size printed), 20 more steps straight on and 20
+    from the reloaded file: lane state equal bit for bit, accumulator
+    within float sum order.  Then a render resumed from the step-20 file
+    to its end against a straight render: image within sum-order
+    tolerance.  cornell_dragon at `width` (600) square, 4 spp, so a pixel
+    sums several paths."""
+    from rust_raytracer_torch.render import checkpoint as ckpt
+    from rust_raytracer_torch.render import pool as poolmod
+    from rust_raytracer_torch.render.camera import camera_from_config
+    from rust_raytracer_torch.utils import config as cfg
+
+    cam = camera_from_config(cfg.merge_scene_config(scene.config, {"output_width": width}),
+                             cfg.RenderConfig(samples_per_pixel=4, max_depth=DEPTH))
+    n_pixels, spp = cam.image_width * cam.image_height, cam.actual_spp
+    step = poolmod.make_step(pack, static, cam, n_pixels * spp, spp, 0)
+    state = poolmod.init_state(LANES, n_pixels, dev)
+    for _ in range(20):
+        state = step(pack, state)
+    path = os.path.join(HERE, "build", "chip_smoke_resume.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_pool_state(path, state, {
+        "step_count": 20, "params_hash": ckpt.params_hash(0, spp, n_pixels, LANES, cam)})
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    loaded, _ = ckpt.load_pool_state(path, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    lane = ("org", "dirn", "throughput", "radiance", "pixel", "sample", "bounce", "active",
+            "next_flat", "overflow")
+    if not all(torch.equal(getattr(loaded, f), getattr(state, f)) for f in lane + ("accum",)):
+        raise AssertionError("the reloaded checkpoint differs from the saved state")
+    a, b = state, loaded
+    for _ in range(20):
+        a, b = step(pack, a), step(pack, b)
+    same = [f for f in lane if torch.equal(getattr(a, f), getattr(b, f))]
+    d_acc = (a.accum - b.accum).abs().max().item()
+    scale = a.accum.abs().max().item()
+    acc_equal = torch.equal(a.accum, b.accum)
+    if len(same) != len(lane) or d_acc > 1e-5 * scale:
+        raise AssertionError(f"resume on the card: lane fields equal {same}, accum max |d| "
+                             f"{d_acc} of {scale}")
+    straight = poolmod.render_pool(pack, static, cam, n_pixels, spp, LANES, dev)
+    resumed = ckpt.render_pool_resumable(pack, static, cam, n_pixels, spp, LANES, dev,
+                                         checkpoint_path=path)
+    d_img = (straight - resumed).abs().max().item()
+    n_diff = int((straight != resumed).any(dim=1).sum())
+    if not torch.allclose(resumed, straight, rtol=1e-5, atol=1e-6 * straight.abs().max().item()):
+        raise AssertionError(f"resumed image differs from the straight one: max |d| {d_img}")
+    log(f"resume on the card (cornell_dragon {cam.image_width}x{cam.image_height}@{spp}spp, "
+        f"{LANES} lanes): checkpoint at step 20 {size} bytes, save {save_s * 1e3:.1f} ms, load "
+        f"{load_s * 1e3:.1f} ms; 20 steps on from the file vs straight on: lane state equal "
+        f"bit for bit ({len(same)} fields), accum {'equal' if acc_equal else 'max |d| '}"
+        f"{'' if acc_equal else f'{d_acc:.3e} of {scale:.3e}'}; resumed render vs straight: "
+        f"{n_diff} of {n_pixels} pixels differ, max |d| {d_img:.3e} of "
+        f"{straight.abs().max().item():.3e} ({card})")
+    os.unlink(path)
+    return {"bytes": size, "save_ms": save_s * 1e3, "load_ms": load_s * 1e3}
+
+
+def cli_volume_resume_phases(scene, camera, renderer, dev, card):
+    """Phases 18-21: volumes on the card, a fog render, the
+    CLI's main path and checkpoint/resume.  `scene`, `camera`, `renderer`
+    are the main path's cornell_dragon SceneDef, camera and BVH8 renderer."""
+    from rust_raytracer_torch import models
+    from rust_raytracer_torch.render.camera import camera_from_config
+    from rust_raytracer_torch.render.renderer import Renderer
+    from rust_raytracer_torch.scene import graph as g
+    from rust_raytracer_torch.utils import config as cfg
+
+    # ---- 18. volumes: cornell_smoke on the card against the same on the
+    # CPU, then 2^18 rays through intersect with every boundary kind ----
+    smoke = models.build("cornell_smoke")
+    smoke_cam = camera_from_config(cfg.merge_scene_config(smoke.config, {"output_width": 64}),
+                                   cfg.RenderConfig(samples_per_pixel=4, max_depth=8))
+    imgs = [Renderer(smoke, smoke_cam, batch_size=4096, device=d).render().hdr()
+            for d in (dev, "cpu")]
+    rel = np.abs(imgs[0] - imgs[1]).mean() / imgs[1].mean()
+    close = np.isclose(imgs[0], imgs[1], rtol=1e-3, atol=1e-4).mean()
+    log(f"cornell_smoke 64x64@4spp depth 8 card vs cpu: mean |d|/mean {rel:.3e}, pixels close "
+        f"{close:.4f}")
+    if not (rel <= 1e-3 and close >= 0.995):
+        raise AssertionError("the card's cornell_smoke render disagrees with the CPU's")
+    volume_intersect_parity(volume_kinds_scene(g, smoke), dev, card)
+
+    # ---- 19. cornell_dragon with a fog sphere through the pool ----
+    fog_pool_render(scene, camera, dev, card)
+
+    # ---- 20. the CLI on the card (this slice's main path): cornell_smoke
+    # at its own 600x600, cornell_dragon at the main path's size ----
+    _, smoke_launches = cli_render(["cornell_smoke", "-s=1", f"--max-depth={DEPTH}"], 1, dev,
+                                   card)
+    cli_m, cli_launches = cli_render(["cornell_dragon", f"-w={W}", f"-s={SPP}",
+                                      f"--max-depth={DEPTH}"], SPP, dev, card)
+    if any(smoke_launches.values()) or cli_launches != {
+            **{k: 0 for k in cli_launches}, "bvh8_traverse": cli_m["steps"]}:
+        raise AssertionError(f"cli launches: cornell_smoke {smoke_launches}, cornell_dragon "
+                             f"{cli_launches} in {cli_m['steps']} pool steps")
+
+    # ---- 21. checkpoint/resume of the pool on the card ----
+    resume_check(renderer.pack, renderer.static, scene, dev, card)
+    return cli_launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1218,12 +1562,12 @@ def main():
     from rust_raytracer_torch.ops import wavefront as wf
     from rust_raytracer_torch.render import integrator
     from rust_raytracer_torch.render.camera import camera_from_config
-    from rust_raytracer_torch.render.pool import PoolMetrics
     from rust_raytracer_torch.render.renderer import BatchMetrics, Renderer
     from rust_raytracer_torch.scene import compiler
     from rust_raytracer_torch.scene import graph as g
     from rust_raytracer_torch.utils import config as cfg
     from rust_raytracer_torch.utils import procgen
+    from rust_raytracer_torch.utils.metrics import RenderMetrics
 
     dev = torch.device("cuda:0")
     start = time.perf_counter()
@@ -1355,7 +1699,7 @@ def main():
 
     # ---- 5. the main path: full-width pool render through the kernel ----
     renderer = Renderer(scene, camera, batch_size=LANES, kernel="auto", device=dev)
-    metrics = PoolMetrics()
+    metrics = RenderMetrics()
     torch.cuda.synchronize()
     bvh8.launches = 0
     bvh8.plain_calls = 0
@@ -1375,7 +1719,7 @@ def main():
     total = W * h * SPP
     log(f"main path: cornell_dragon {W}x{h}@{SPP}spp depth {DEPTH}, {LANES} lanes: "
         f"{total / render_s:.1f} pixel-samples/s ({render_s:.3f} s), "
-        f"{metrics.steps} steps, mean occupancy {metrics.mean_occupancy:.4f}, "
+        f"{metrics.steps} steps, mean occupancy {occupancy(metrics):.4f}, "
         f"kernel launches {launches} ({card})")
 
     # ---- 6. the kernel against its plain version on every pool step's own
@@ -1439,7 +1783,7 @@ def main():
     parity_launches = dict(wf.launches)
 
     # ---- 11. the wavefront main path ----
-    wf_metrics = PoolMetrics()
+    wf_metrics = RenderMetrics()
     torch.cuda.synchronize()
     bvh8.launches, bvh8.plain_calls = 0, 0
     for name in wf.KERNELS:
@@ -1460,12 +1804,13 @@ def main():
             f"BVH8 plain calls {bvh8.plain_calls}")
     wf_hdr = check_image(wf_film, camera)
     wf_film.save(os.path.join(HERE, "build", "chip_smoke_cornell_dragon_wavefront.png"))
-    ov_frac = wf_metrics.overflow / wf_metrics.total_packets
+    ov_frac = wf_metrics.wf_overflow_packets / wf_metrics.wf_total_packets
     log(f"wavefront main path: cornell_dragon {W}x{h}@{SPP}spp depth {DEPTH}, {LANES} "
         f"lanes: {total / wf_render_s:.1f} pixel-samples/s ({wf_render_s:.3f} s; BVH8 "
         f"path above {total / render_s:.1f}), {wf_metrics.steps} steps, mean occupancy "
-        f"{wf_metrics.mean_occupancy:.4f}, launches {wf_launches}, overflow "
-        f"{wf_metrics.overflow}/{wf_metrics.total_packets} packets ({ov_frac:.4%}) ({card})")
+        f"{occupancy(wf_metrics):.4f}, launches {wf_launches}, overflow "
+        f"{wf_metrics.wf_overflow_packets}/{wf_metrics.wf_total_packets} packets "
+        f"({ov_frac:.4%}) ({card})")
     agree, rel = image_agreement(wf_hdr, hdr)
     log(f"wavefront image vs BVH8 image: pixel agreement {agree:.6f}, "
         f"mean |d|/mean {rel:.3e}")
@@ -1595,6 +1940,10 @@ def main():
     if card_launches == 0:
         raise AssertionError("the small cornell_dragon gradient launched no K3 kernel")
 
+    # ---- 18-21. volumes, the CLI (this slice's main path) and
+    # checkpoint/resume on the card ----
+    cli_launches = cli_volume_resume_phases(scene, camera, renderer, dev, card)
+
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")
     loaded = [m for m in sys.modules if m.split(".")[0] == "rust_raytracer_tpu"]
@@ -1641,6 +1990,7 @@ def main():
         "ms_primary": times["primary"][0],
         "plain_ms_primary": times["primary"][1],
         "render_device_ms": split["bvh8_traverse"][0],
+        "cli_launches": cli_launches["bvh8_traverse"],
     }] + [{
         "name": name,
         "route": "cuda",

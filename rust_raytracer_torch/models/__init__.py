@@ -3,7 +3,7 @@ of rust_raytracer_tpu/models/__init__.py).
 
 Mirrors the reference's scene dispatch (main.rs:30-59): names map to
 builders returning (SceneDef, camera-config dict).  DSL files and `model:`
-paths (the reference's utils/cli.py) are not ported yet.
+paths are handled by utils/cli.py.
 """
 from __future__ import annotations
 

@@ -11,7 +11,11 @@ differentiable: `intersect` runs it under torch.no_grad() (the reference's
 stop_gradient on the hits), and `hit_attributes` recomputes t from the
 gathered primitive, so gradients flow through that recomputation.
 
-Volumes are not ported yet: a pack with volumes raises NotImplementedError.
+Volumes (constant-density media in a convex boundary) come after the
+surfaces: each samples a free-flight distance from the RNG context and is
+truncated by the nearest surface.  Each volume's boundary kind is read from
+the host (`ScenePack.vol_kinds`), so only that kind's span is computed and
+a scene without volumes adds no operation.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import math as vmath
+from ..core import rng as vrng
 from ..scene import pack as sp
 from . import bvh8
 from . import threaded
@@ -192,27 +197,138 @@ def intersect_triangles(pack, org, dirn, t_min, t_max, kernel: str = "auto",
     return t, i
 
 
-def intersect(pack, org, dirn, t_min, alive=None, kernel: str = "auto",
+# ---------------------------------------------------------------------------
+# Volumes (reference: object/volume.rs)
+# ---------------------------------------------------------------------------
+
+# Elements (lanes x triangles) of one chunk of a mesh boundary's span: each
+# (lanes, chunk, 3) f32 temporary stays near 24 MB, whatever the boundary's
+# triangle count.
+VOL_CHUNK_ELEMS = 1 << 21
+
+
+def _mesh_crossings(pack, vi, org, dirn, lo, hi):
+    """t of every crossing of triangles [lo, hi) of volume vi's padded
+    boundary block, inf where the ray misses (padded rows have det 0)."""
+    v0 = pack.vol_tri_v0[vi, lo:hi][None]
+    e1 = pack.vol_tri_e1[vi, lo:hi][None]
+    e2 = pack.vol_tri_e2[vi, lo:hi][None]
+    d = dirn[:, None, :]
+    pvec = vmath.cross(d, e2)
+    det = vmath.dot(e1, pvec)
+    inv_det = 1.0 / torch.where(det == 0.0, torch.ones_like(det), det)
+    bvec = org[:, None, :] - v0
+    u = vmath.dot(bvec, pvec) * inv_det
+    qvec = vmath.cross(bvec, e1)
+    w = vmath.dot(d, qvec) * inv_det
+    tt = vmath.dot(e2, qvec) * inv_det
+    ok = (torch.abs(det) > DET_EPS) & (u >= 0.0) & (u <= 1.0)
+    ok &= (w >= 0.0) & (u + w <= 1.0)
+    return torch.where(ok, tt, float("inf"))
+
+
+def _volume_boundary_span(pack, org, dirn, vi):
+    """Entry/exit t of each ray against the convex boundary of volume vi,
+    the reference's `_volume_boundary_span` (intersect.py:505-570) for the
+    one kind the volume has -> (t_enter, t_exit, valid).
+
+    Sphere/ellipsoid: the unit-sphere quadratic after `vol_axes` (the
+    world -> unit-sphere map).  Oriented box: the slab test in the frame of
+    `vol_axes` (rotation rows), with NaN-propagating min/max as jnp's.
+    Convex mesh: entry is the nearest crossing, exit the nearest crossing
+    beyond entry + 1e-6; both are running minima over chunks of
+    VOL_CHUNK_ELEMS // lanes triangles, so no (lanes, TB) temporary is
+    made whole (two passes when the block takes more than one chunk).  The
+    block's padding rows past the volume's own triangles
+    (`ScenePack.vol_tri_counts`) are skipped: they are never crossed."""
+    kind = pack.vol_kinds[vi]
+    if kind == sp.VOL_MESH:
+        tb = pack.vol_tri_counts[vi]
+        step = max(1, VOL_CHUNK_ELEMS // max(org.shape[0], 1))
+        # one chunk: its crossings serve both passes; more: each pass makes them
+        whole = [_mesh_crossings(pack, vi, org, dirn, 0, tb)] if tb <= step else None
+
+        def chunks():
+            return whole or (_mesh_crossings(pack, vi, org, dirn, lo, lo + step)
+                             for lo in range(0, tb, step))
+
+        inf = float("inf")
+        enter = torch.stack([ts.amin(dim=1) for ts in chunks()]).amin(dim=0)
+        floor = (enter + 1e-6)[:, None]
+        exit_ = torch.stack([torch.where(ts > floor, ts, inf).amin(dim=1)
+                             for ts in chunks()]).amin(dim=0)
+        valid = torch.isfinite(enter) & torch.isfinite(exit_)
+        return torch.where(valid, enter, 0.0), torch.where(valid, exit_, 0.0), valid
+
+    axes = pack.vol_axes[vi]
+    oc = (org - pack.vol_center[vi]) @ axes.T
+    dl = dirn @ axes.T
+    if kind == sp.VOL_SPHERE:
+        a = vmath.length_squared(dl)
+        half_b = vmath.dot(dl, oc)
+        c = vmath.length_squared(oc) - 1.0
+        disc = half_b * half_b - a * c
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        a_safe = torch.where(a == 0.0, torch.ones_like(a), a)
+        return (-half_b - sq) / a_safe, (-half_b + sq) / a_safe, disc > 0.0
+    half = pack.vol_halfsize[vi]
+    inv = 1.0 / dl
+    t0 = (-half - oc) * inv
+    t1 = (half - oc) * inv
+    enter = torch.minimum(t0, t1).amax(dim=-1)
+    exit_ = torch.maximum(t0, t1).amin(dim=-1)
+    return enter, exit_, enter < exit_
+
+
+def intersect_volumes(pack, org, dirn, t_min, t_max, rng_ctx):
+    """Stochastic constant-density media (reference: volume.rs:33-71,
+    intersect.py:573-601) -> (t, volume id or -1).
+
+    `t_max` is the nearest surface's t, so each free flight is truncated
+    there.  Volume vi draws its free-flight distance from stream
+    Streams.VOLUME + 16 * vi; a later volume's hit replaces an earlier
+    one's, as the reference's unrolled loop."""
+    n_v = len(pack.vol_kinds)
+    best_i = _full(org.shape[0], -1, torch.int32, org.device)
+    if n_v == 0:
+        return t_max, best_i
+    ray_len = vmath.length(dirn)
+    best_t = t_max
+    for vi in range(n_v):
+        t_enter, t_exit, valid = _volume_boundary_span(pack, org, dirn, vi)
+        lo = torch.clamp(torch.maximum(t_enter, t_min), min=0.0)
+        hi = torch.minimum(t_exit, best_t)
+        inside = valid & (lo < hi)
+        dist_inside = (hi - lo) * ray_len
+        u = rng_ctx.uniform(vrng.Streams.VOLUME + 16 * vi)
+        hit_dist = pack.vol_neg_inv_density[vi] * torch.log(torch.clamp(u, min=1e-30))
+        t = lo + hit_dist / ray_len
+        hit = inside & (hit_dist <= dist_inside)
+        best_i = torch.where(hit, vi, best_i)
+        best_t = torch.where(hit, t, best_t)
+    return best_t, best_i
+
+
+def intersect(pack, org, dirn, t_min, rng_ctx, alive=None, kernel: str = "auto",
               return_stats: bool = False):
     """Closest hit across all primitive classes -> Hit, or (Hit, stats)
     with return_stats=True (stats as intersect_triangles returns them).
 
     Ordering follows the reference's list scan with shrinking intervals:
-    finite surface hits first, then the sun (t = T_SUN) within its cone,
+    finite surface hits first, then the volumes' free-flight samples
+    truncated by the nearest surface (`rng_ctx`, a core/rng.Ctx of the
+    lanes, keys their draws), then the sun (t = T_SUN) within its cone,
     then the last sky catches everything still unbounded.  `alive` bounds
     the triangle traversal's t_max at 0 for dead lanes, so they exit the
     BVH at the root; their results are garbage by contract.  The whole
     search runs under torch.no_grad(): the hits carry no gradient.
     """
-    if pack.vol_kind.shape[0]:
-        raise NotImplementedError(
-            "volumes are not ported yet (ROADMAP Queue 1, volumes)")
     with torch.no_grad():
-        return _intersect(pack, org.detach(), dirn.detach(), t_min, alive, kernel,
-                          return_stats)
+        return _intersect(pack, org.detach(), dirn.detach(), t_min, rng_ctx, alive,
+                          kernel, return_stats)
 
 
-def _intersect(pack, org, dirn, t_min, alive, kernel, return_stats):
+def _intersect(pack, org, dirn, t_min, rng_ctx, alive, kernel, return_stats):
     n = org.shape[0]
     dev, dtype = org.device, org.dtype
     inf = _full(n, float("inf"), dtype, dev)
@@ -237,6 +353,13 @@ def _intersect(pack, org, dirn, t_min, alive, kernel, return_stats):
     finite = torch.isfinite(t_best)
     kind = torch.where(finite, kind, sp.PRIM_NONE).to(torch.int32)
     prim = torch.where(finite, prim, -1).to(torch.int32)
+
+    if pack.vol_kinds:
+        t_vol, i_vol = intersect_volumes(pack, org, dirn, t_min, t_best, rng_ctx)
+        vol_hit = i_vol >= 0
+        t_best = torch.where(vol_hit, t_vol, t_best)
+        kind = torch.where(vol_hit, sp.PRIM_VOLUME, kind).to(torch.int32)
+        prim = torch.where(vol_hit, i_vol, prim).to(torch.int32)
 
     n_sun = pack.sun_dir.shape[0]
     if n_sun:
@@ -405,6 +528,14 @@ def hit_attributes(pack, org, dirn, hit: Hit) -> HitAttributes:
         bitangent = torch.where(is_t, t_bit, bitangent)
         uv = torch.where(is_t, t_uv, uv)
         mat = torch.where(is_t[:, 0], tri_row[:, 26].to(torch.int32), mat)
+
+    n_vol = pack.vol_kind.shape[0]
+    if n_vol:
+        # volume.rs:56-66: an arbitrary normal, which isotropic ignores
+        is_v = hit.kind == sp.PRIM_VOLUME
+        x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev)
+        normal = torch.where(is_v[:, None], x_axis, normal)
+        mat = torch.where(is_v, pack.vol_mat[_clip(prim, n_vol)], mat)
 
     if pack.sky_tex.shape[0]:
         is_k = hit.kind == sp.PRIM_SKY

@@ -1,0 +1,144 @@
+"""Checkpoint / resume for long renders (port of
+rust_raytracer_tpu/render/checkpoint.py).
+
+The pool renderer's whole lane state, image accumulator and job cursor are
+snapshotted to one .npz (written to a temporary file, then renamed); resuming
+restores the exact PoolState.  The RNG is counter-based on (pixel, sample,
+bounce) (core/rng.py), so no generator state is saved beyond what travels
+in the lanes.
+
+A resumed render's lane state is bit-identical to an uninterrupted run's on
+the CPU and on the card.  Its image is bit-identical on the CPU; on the card
+it equals the uninterrupted image up to the order of each pixel's sum,
+because index_add on CUDA adds in no fixed order (render/pool.py).
+
+The file's fields, meta keys and `params_hash` are the reference's, so
+`load_pool_state` also reads a file the JAX package wrote: it drops that
+file's shard axis of 1 (`accum` (1, n_pixels, 3), `next_flat` and `overflow`
+(1,)) and widens its uint32 ids to the port's int64.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from . import pool as poolmod
+
+_FIELDS = ("org", "dirn", "throughput", "radiance", "pixel", "sample",
+           "bounce", "active", "accum", "next_flat", "overflow")
+_INT_FIELDS = ("pixel", "sample", "bounce", "next_flat", "overflow")
+# fields with one row a shard in a file of the JAX package
+_SHARDED = ("accum", "next_flat", "overflow")
+
+
+def save_pool_state(path: str, state: poolmod.PoolState, meta: dict = None):
+    """Write the pool state (+ optional scalar metadata, saved as
+    `meta_<key>`) atomically: a temporary file in the same directory, then
+    a rename."""
+    arrays = {f: getattr(state, f).detach().cpu().numpy() for f in _FIELDS}
+    for k, v in (meta or {}).items():
+        arrays[f"meta_{k}"] = np.asarray(v)
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+    return path
+
+
+def load_pool_state(path: str, device):
+    """Returns (PoolState on `device`, meta dict).  A file of the JAX
+    package loads too (module docstring); a file with more than one shard
+    raises ValueError."""
+    with np.load(path) as z:
+        arrays = {f: z[f] for f in _FIELDS if f in z.files}
+        meta = {k[5:]: z[k] for k in z.files if k.startswith("meta_")}
+    # checkpoints written before the overflow counter existed load as 0
+    if "overflow" not in arrays:
+        arrays["overflow"] = np.zeros(arrays["next_flat"].shape, np.int64)
+    if arrays["accum"].ndim == 3:
+        for f in _SHARDED:
+            if arrays[f].shape[0] != 1:
+                raise ValueError(f"{path}: {f} holds {arrays[f].shape[0]} shards; "
+                                 "the port's pool runs on one device")
+            arrays[f] = arrays[f][0]
+    for f in _INT_FIELDS:
+        arrays[f] = arrays[f].astype(np.int64)
+    state = poolmod.PoolState(**{f: torch.from_numpy(np.array(arrays[f])).to(device)
+                                 for f in _FIELDS})
+    return state, meta
+
+
+def params_hash(seed, spp, n_pixels, n_lanes, camera) -> np.uint64:
+    """Fingerprint of the render parameters a checkpoint belongs to (the
+    reference's, bit for bit): resuming under another seed, spp, pixel
+    count, lane count, camera or depth would mix lane RNG ids and an
+    accumulator that disagree with the step function."""
+    params = {
+        "seed": int(seed), "spp": int(spp), "n_pixels": int(n_pixels),
+        "n_lanes": int(n_lanes), "max_depth": int(camera.max_depth),
+        "cam": (camera.image_width, camera.image_height,
+                tuple(np.asarray(camera.position, np.float64)),
+                tuple(np.asarray(camera.look_at, np.float64)),
+                float(camera.focal_length), float(camera.light_bias)),
+    }
+    digest = hashlib.sha256(repr(sorted(params.items())).encode()).digest()
+    return np.frombuffer(digest[:8], np.uint64)[0]
+
+
+def render_pool_resumable(pack, static, camera, n_pixels: int, spp: int,
+                          n_lanes: int, device, seed=0,
+                          steps_per_poll: int = poolmod.STEPS_PER_POLL,
+                          kernel: str = "auto", checkpoint_path: str = None,
+                          checkpoint_every_steps: int = 200):
+    """render_pool with periodic checkpoints and resume.
+
+    If checkpoint_path exists, rendering continues from it (ValueError if
+    it was written with other render parameters); otherwise a fresh pool
+    starts.  A checkpoint is written every `checkpoint_every_steps` pool
+    steps (at the poll that reaches it) and once at completion.  Returns
+    the (n_pixels, 3) radiance sum."""
+    total = n_pixels * spp
+    step_count = 0
+    phash = params_hash(seed, spp, n_pixels, n_lanes, camera)
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        state, meta = load_pool_state(checkpoint_path, device)
+        step_count = int(meta.get("step_count", 0))
+        saved_hash = meta.get("params_hash")
+        if saved_hash is not None and np.uint64(saved_hash) != phash:
+            raise ValueError(
+                f"checkpoint {checkpoint_path} was written with different "
+                f"render parameters (seed/spp/pixels/camera/depth); refusing "
+                f"to resume into an inconsistent state")
+        if state.org.shape[0] != n_lanes:
+            raise ValueError(f"checkpoint lane count {state.org.shape[0]} != {n_lanes}")
+    else:
+        state = poolmod.init_state(n_lanes, n_pixels, device)
+    step = poolmod.make_step(pack, static, camera, total, spp, seed, kernel=kernel)
+    since = 0
+
+    def on_poll(state, done_steps, issued, n_active):
+        nonlocal since
+        since += steps_per_poll
+        if checkpoint_path and since >= checkpoint_every_steps:
+            save_pool_state(checkpoint_path, state,
+                            {"step_count": done_steps, "params_hash": phash})
+            since = 0
+
+    state, step_count = poolmod.poll_loop(
+        pack, step, state, total, poolmod.max_pool_steps(total, n_lanes, camera.max_depth),
+        steps_per_poll, done_steps=step_count, on_poll=on_poll)
+    if checkpoint_path:
+        save_pool_state(checkpoint_path, state,
+                        {"step_count": step_count, "params_hash": phash})
+    return state.accum

@@ -24,6 +24,7 @@ from ..core import rng as vrng
 from ..ops import intersect as isect
 from ..ops import shade as shd
 from ..ops import texture as tex
+from ..utils import metrics as metricsmod
 
 REMAT_MODES = ("none", "hits", "full")
 
@@ -107,7 +108,7 @@ def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
     overflowed a wavefront cap this vertex (a 0-d int64 tensor on the
     device; 0 for the exact walks).
     """
-    hit, stats = isect.intersect(pack, org, dirn, T_MIN, alive=alive, kernel=kernel,
+    hit, stats = isect.intersect(pack, org, dirn, T_MIN, ctx, alive=alive, kernel=kernel,
                                  return_stats=True)
     return (*shade_hits(pack, static, org, dirn, hit, ctx, light_bias), stats)
 
@@ -176,7 +177,7 @@ def _trace(pack, static, org, dirn, rng_ctx, max_depth, light_bias, compact,
         return new_org, new_dir, throughput, radiance, alive
 
     def whole_bounce(org, dirn, throughput, radiance, alive, ctx):
-        hit = isect.intersect(pack, org, dirn, T_MIN, alive=alive, kernel=kernel)
+        hit = isect.intersect(pack, org, dirn, T_MIN, ctx, alive=alive, kernel=kernel)
         return shade_bounce(org, dirn, throughput, radiance, alive, hit, ctx)
 
     bounces = 0
@@ -198,13 +199,16 @@ def _trace(pack, static, org, dirn, rng_ctx, max_depth, light_bias, compact,
             out = ckpt.checkpoint(whole_bounce, *state, ctx, use_reentrant=False,
                                   preserve_rng_state=False)
         else:
-            hit = isect.intersect(pack, org, dirn, T_MIN, alive=alive, kernel=kernel)
+            hit = isect.intersect(pack, org, dirn, T_MIN, ctx, alive=alive, kernel=kernel)
             if differentiable and remat == "hits":
                 out = ckpt.checkpoint(shade_bounce, *state, hit, ctx, use_reentrant=False,
                                       preserve_rng_state=False)
             else:
                 out = shade_bounce(*state, hit, ctx)
         org, dirn, throughput, radiance, alive = out
+        if metricsmod.nan_checks():
+            metricsmod.check_nans(f"trace bounce {depth}", org=org, dirn=dirn,
+                                  throughput=throughput, radiance=radiance)
     if stats is not None:
         stats["bounces"] = bounces
     if compact:

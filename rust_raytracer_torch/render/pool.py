@@ -15,15 +15,18 @@ PyTorch; the triangle traversal inside it is the chosen traversal's CUDA
 kernels on the card (`kernel`: the BVH8 walk or the wavefront pipeline,
 whose cap-overflow count the state sums on the device).  Multi-device
 sharding (`mesh`) is not ported yet.
+
+`poll_loop` is the host loop that render_pool and
+render/checkpoint.py:render_pool_resumable share.
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import List, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..core import rng as vrng
+from ..utils import metrics as metricsmod
 from . import integrator
 
 
@@ -124,10 +127,15 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
         active = still | issue
         next_flat = torch.clamp(s.next_flat + n_dead, max=total)
 
-        return PoolState(org=org, dirn=dirn, throughput=throughput,
-                         radiance=radiance, pixel=pixel, sample=sample,
-                         bounce=bounce, active=active, accum=accum,
-                         next_flat=next_flat, overflow=overflow)
+        out = PoolState(org=org, dirn=dirn, throughput=throughput,
+                        radiance=radiance, pixel=pixel, sample=sample,
+                        bounce=bounce, active=active, accum=accum,
+                        next_flat=next_flat, overflow=overflow)
+        if metricsmod.nan_checks():
+            metricsmod.check_nans("pool step", **{
+                f: getattr(out, f) for f in ("org", "dirn", "throughput", "radiance",
+                                             "accum")})
+        return out
 
     return step
 
@@ -136,49 +144,55 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
 STEPS_PER_POLL = 10
 
 
-@dataclasses.dataclass
-class PoolMetrics:
-    """Counters of one pool render: steps run, the lane occupancy (active
-    / lanes) read at each poll, and the packets that overflowed a
-    wavefront cap out of all 8-lane packets traced (the reference's
-    wf_overflow_packets / wf_total_packets)."""
-    steps: int = 0
-    occupancy: List[float] = dataclasses.field(default_factory=list)
-    overflow: int = 0
-    total_packets: int = 0
+def max_pool_steps(total: int, n_lanes: int, max_depth: int) -> int:
+    """Upper bound on the steps of a render, for safety against scheduling
+    bugs: every lane-job takes <= max_depth steps."""
+    return (total * max_depth) // n_lanes + 2 * max_depth
 
-    @property
-    def mean_occupancy(self) -> float:
-        return sum(self.occupancy) / len(self.occupancy) if self.occupancy else 0.0
+
+def poll_loop(pack, step, state: PoolState, total: int, max_steps: int,
+              steps_per_poll: int = STEPS_PER_POLL, done_steps: int = 0,
+              on_poll: Optional[Callable] = None):
+    """Run `step` steps_per_poll at a time until every job is issued and no
+    lane is active (two scalars read a poll), or max_steps.  `on_poll(state,
+    done_steps, issued, n_active)` is called after each poll.  Returns
+    (state, done_steps)."""
+    while done_steps < max_steps:
+        for _ in range(steps_per_poll):
+            state = step(pack, state)
+        done_steps += steps_per_poll
+        issued = int(state.next_flat)
+        n_active = int(state.active.sum())
+        if on_poll is not None:
+            on_poll(state, done_steps, issued, n_active)
+        if issued >= total and n_active == 0:
+            break
+    return state, done_steps
 
 
 def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
-                device, seed=0, metrics: PoolMetrics = None, kernel: str = "auto"):
+                device, seed=0, metrics: Optional[metricsmod.RenderMetrics] = None,
+                kernel: str = "auto"):
     """Render n_pixels * spp samples through a pool of n_lanes on `device`.
 
     Returns the (n_pixels, 3) radiance sum (divide by spp for the mean).
-    `metrics`, if given, records steps, per-poll occupancy and overflow.
-    The host reads two scalars every STEPS_PER_POLL steps to decide
-    completion.
+    `metrics`, a utils/metrics.RenderMetrics, records at each poll the
+    steps, the live lanes, the jobs issued and the wavefront overflow
+    packets out of all 8-lane packets traced, as the reference's pool
+    does.
     """
     total = n_pixels * spp
     state = init_state(n_lanes, n_pixels, device)
     step = make_step(pack, static, camera, total, spp, seed, kernel=kernel)
-    # every lane-job takes <= max_depth steps
-    max_steps = (total * camera.max_depth) // n_lanes + 2 * camera.max_depth
 
-    done_steps = 0
-    while done_steps < max_steps:
-        for _ in range(STEPS_PER_POLL):
-            state = step(pack, state)
-        done_steps += STEPS_PER_POLL
-        issued = int(state.next_flat)
-        n_active = int(state.active.sum())
+    def on_poll(state, done_steps, issued, n_active):
         if metrics is not None:
-            metrics.steps = done_steps
-            metrics.occupancy.append(n_active / n_lanes)
-            metrics.overflow = int(state.overflow)
-            metrics.total_packets = (n_lanes // 8) * done_steps
-        if issued >= total and n_active == 0:
-            break
+            # poll-granular: one sample covering STEPS_PER_POLL steps at
+            # the end-of-poll occupancy
+            metrics.record_step(n_active, n_lanes, issued, weight=STEPS_PER_POLL)
+            metrics.wf_overflow_packets = int(state.overflow)
+            metrics.wf_total_packets = (n_lanes // 8) * done_steps
+
+    state, _ = poll_loop(pack, step, state, total,
+                         max_pool_steps(total, n_lanes, camera.max_depth), on_poll=on_poll)
     return state.accum

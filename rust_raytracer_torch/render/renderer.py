@@ -20,6 +20,7 @@ from ..core import rng as vrng
 from ..ops import intersect as isect
 from ..scene import compiler as scompiler
 from ..scene import graph as sgraph
+from ..utils import metrics as metricsmod
 from . import camera as cam
 from . import film as filmmod
 from . import integrator
@@ -54,7 +55,7 @@ class Renderer:
         "auto" — the exact BVH8 walk, or the exact threaded walk where the
         BVH8 kernel cannot run the scene; "bvh8"; "threaded"; "wavefront"
         — the cull -> compact -> MT pipeline (approximate when a packet
-        overflows a cap; PoolMetrics.overflow counts them).  CUDA kernels
+        overflows a cap; RenderMetrics.wf_overflow_packets counts them).  CUDA kernels
         for a CUDA device, their plain versions for the CPU."""
         isect.check_kernel(kernel)
         self.device = torch.device(device)
@@ -67,16 +68,14 @@ class Renderer:
         self.batch_size = batch_size
         self.kernel = kernel
         self.pack, self.static = scompiler.compile_scene(scene, self.device)
-        if self.pack.vol_kind.shape[0]:
-            raise NotImplementedError(
-                "scenes with volumes are not ported yet (ROADMAP Queue 1, volumes)")
 
     def render(self, spp: Optional[int] = None, mode: str = "pool",
-               metrics: Union[poolmod.PoolMetrics, BatchMetrics, None] = None
+               metrics: Union[metricsmod.RenderMetrics, BatchMetrics, None] = None
                ) -> filmmod.Film:
         """Render the full image: mode="pool", the persistent ray pool, or
         mode="batch", the bounded-loop schedule.  `metrics`, if given (a
-        PoolMetrics or a BatchMetrics), records the schedule's counters."""
+        utils/metrics.RenderMetrics for the pool, a BatchMetrics for the
+        batch schedule), records the schedule's counters."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
         if mode == "pool":
@@ -84,7 +83,7 @@ class Renderer:
         return self.render_batched(spp=spp, metrics=metrics)
 
     def render_pool(self, spp: Optional[int] = None,
-                    metrics: Optional[poolmod.PoolMetrics] = None) -> filmmod.Film:
+                    metrics: Optional[metricsmod.RenderMetrics] = None) -> filmmod.Film:
         camera = self.camera
         w, h = camera.image_width, camera.image_height
         total_spp = camera.actual_spp if spp is None else spp

@@ -18,6 +18,12 @@ ops/wavefront.py reads `tri_rows`), derived once when the pack is built:
                               (node_rows below)
   bvh8_depth int              levels of internal BVH8 nodes on the longest
                               root-to-leaf path (bounds the kernel's stack)
+  vol_kinds  tuple of int     `vol_kind` on the host: each volume's boundary
+                              kind (VOL_*), so the intersector computes only
+                              that kind's span without reading the device
+  vol_tri_counts tuple of int each volume's rows of the padded `vol_tri_*`
+                              block up to its last triangle (0 for an
+                              analytic boundary); the rows past it are padding
 
 The float DEVICE_FIELDS are the scene's parameters for the differentiable
 trace (`ScenePack.with_grad`); the derived kernel tables are not: the
@@ -95,13 +101,14 @@ _PackBase = NamedTuple(
     "_PackBase",
     [(f, Any) for f in DEVICE_FIELDS]
     + [("tex_data", Tuple[Any, ...]), ("bvh8_box", Any), ("tri_rows", Any),
-       ("bvh_node_rows", Any), ("bvh8_depth", int)],
+       ("bvh_node_rows", Any), ("bvh8_depth", int), ("vol_kinds", Tuple[int, ...]),
+       ("vol_tri_counts", Tuple[int, ...])],
 )
 
 
 class ScenePack(_PackBase):
     """Scene tables on one device (fields: DEVICE_FIELDS + tex_data + the
-    BVH8 kernel tables; see the module docstring)."""
+    kernel tables and the host-side counts; see the module docstring)."""
 
     def to(self, device) -> "ScenePack":
         moved = {f: getattr(self, f).to(device) for f in DEVICE_FIELDS}
@@ -174,6 +181,13 @@ def bvh8_depth(child8: np.ndarray) -> int:
     return depth
 
 
+def vol_tri_counts(e1: np.ndarray, e2: np.ndarray) -> Tuple[int, ...]:
+    """Per volume, the rows of its (TB, 3) edge blocks up to the last row
+    with a nonzero edge: padding (zero rows) is never crossed."""
+    used = (e1 != 0).any(axis=-1) | (e2 != 0).any(axis=-1)
+    return tuple(int(np.nonzero(u)[0][-1]) + 1 if u.any() else 0 for u in used)
+
+
 def from_numpy(leaves: Dict[str, np.ndarray], tex_data: tuple, device) -> ScenePack:
     """Build the pack on `device` from numpy leaves named as the reference
     ScenePack's fields (e.g. `np.asarray` of each leaf of a JAX pack, or
@@ -194,4 +208,7 @@ def from_numpy(leaves: Dict[str, np.ndarray], tex_data: tuple, device) -> SceneP
         tri_rows=torch.from_numpy(rows).to(device),
         bvh_node_rows=torch.from_numpy(nodes).to(device),
         bvh8_depth=bvh8_depth(np.asarray(leaves["bvh8_child"])),
+        vol_kinds=tuple(int(k) for k in np.asarray(leaves["vol_kind"])),
+        vol_tri_counts=vol_tri_counts(np.asarray(leaves["vol_tri_e1"]),
+                                      np.asarray(leaves["vol_tri_e2"])),
     )

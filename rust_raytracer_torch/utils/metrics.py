@@ -1,0 +1,161 @@
+"""Observability: structured render metrics, torch.profiler tracing, and a
+NaN-debug mode (port of rust_raytracer_tpu/utils/metrics.py).
+
+The reference prints per-thread wall-clock only (camera.rs:235-236); here a
+render records throughput counters a script can scrape, per-stage timings,
+and profiler traces.
+
+Everything here is opt-in and costs nothing when unused: no global state is
+touched unless a context manager is entered.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+
+@dataclass
+class RenderMetrics:
+    """Accumulates counters during a render; emit() prints ONE JSON line
+    so logs stay machine-parseable.  The pool renderer (render/pool.py)
+    records into it every poll."""
+
+    n_pixels: int = 0
+    spp: int = 0
+    max_depth: int = 0
+    samples_issued: int = 0
+    steps: int = 0
+    lane_bounces: int = 0          # lanes advanced x steps (pool work units)
+    wall_start: float = field(default_factory=time.time)
+    stage_seconds: Dict[str, float] = field(default_factory=dict)
+    bounce_alive: List[int] = field(default_factory=list)  # live lanes a poll
+    # wavefront traversal capacity overflow: packets that hit a static cap
+    # (and may have dropped a real hit) / all 8-lane packets traced.  emit()
+    # warns when the fraction exceeds 0.1% (the reference's octree drops
+    # nothing: octree.rs:63-116 visits every overlapped leaf).
+    wf_overflow_packets: int = 0
+    wf_total_packets: int = 0
+
+    def record_step(self, n_alive: int, n_lanes: int, issued: int,
+                    weight: int = 1):
+        """Record one occupancy sample covering `weight` pool steps (the
+        pool reads the device state only every steps_per_poll steps, so
+        occupancy is poll-granular)."""
+        self.steps += weight
+        self.lane_bounces += n_alive * weight
+        self.samples_issued = issued
+        self.bounce_alive.append(int(n_alive))
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.time()
+        try:
+            yield
+        finally:
+            self.stage_seconds[name] = (
+                self.stage_seconds.get(name, 0.0) + time.time() - t0
+            )
+
+    def summary(self) -> dict:
+        wall = max(time.time() - self.wall_start, 1e-9)
+        total = self.n_pixels * self.spp
+        occ = float(np.mean(self.bounce_alive)) if self.bounce_alive else 0.0
+        out = {
+            "pixel_samples": total,
+            "samples_issued": self.samples_issued,
+            "pixel_samples_per_s": self.samples_issued / wall,
+            "rays_per_s": self.lane_bounces / wall,  # 1 closest-hit per lane-bounce
+            "steps": self.steps,
+            "mean_occupancy": occ,
+            "wall_s": wall,
+            "stages_s": dict(self.stage_seconds),
+        }
+        if self.wf_total_packets:
+            out["wf_overflow_packets"] = self.wf_overflow_packets
+            out["wf_overflow_frac"] = self.wf_overflow_packets / self.wf_total_packets
+        return out
+
+    def emit(self, stream=None) -> str:
+        """Print the JSON line to `stream` (default stdout) and return it.
+        The overflow warning goes to stderr, so the JSON line's stream holds
+        nothing else."""
+        s = self.summary()
+        if s.get("wf_overflow_frac", 0.0) > 1e-3:
+            print(
+                "WARNING: wavefront traversal overflowed its candidate "
+                f"capacity on {s['wf_overflow_packets']} packets "
+                f"({s['wf_overflow_frac']:.2%}) — hits may be dropped; "
+                "use kernel='bvh8' (exact BVH8) to verify",
+                file=sys.stderr,
+            )
+        line = json.dumps({"render_metrics": s})
+        print(line, file=stream)
+        return line
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """torch.profiler over the block, CPU activity and, where CUDA is
+    available, the card's; on exit a Chrome trace (`trace_<pid>_<ms>.json`,
+    viewable in chrome://tracing or Perfetto) is written under log_dir.
+    No-op when log_dir is None or empty."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
+
+
+_nan_checks = False
+
+
+def nan_checks() -> bool:
+    """Whether debug_nans is on: the pool step and `integrator.trace` check
+    their outputs."""
+    return _nan_checks
+
+
+def check_nans(where: str, **tensors):
+    """Raise FloatingPointError naming the first of `tensors` that holds a
+    NaN (one device read per tensor)."""
+    for name, t in tensors.items():
+        if t.is_floating_point() and bool(torch.isnan(t).any()):
+            raise FloatingPointError(f"NaN in {name} at {where}")
+
+
+@contextlib.contextmanager
+def debug_nans(enable: bool = True):
+    """NaN-debug mode, the counterpart of jax_debug_nans: the pool step and
+    every bounce of `integrator.trace` read their float outputs back and
+    raise FloatingPointError at the first that holds a NaN, so a lane that
+    poisons the image is caught at the step that produced it, not in the
+    final buffer.  Each check synchronizes with the device: use it for
+    debugging, never for benchmarks.  Off, it adds nothing to a step."""
+    global _nan_checks
+    if not enable:
+        yield
+        return
+    old = _nan_checks
+    _nan_checks = True
+    try:
+        yield
+    finally:
+        _nan_checks = old

@@ -121,7 +121,7 @@ def _scene_rays(name, n_primary=768, n_bounce=768):
     py = torch.from_numpy(rng.integers(0, cam.image_height, n_primary))
     smp = torch.zeros_like(px)
     org, dirn = cam.generate_rays(px, py, smp, _tctx(py * cam.image_width + px))
-    hit = tisect.intersect(tp, org, dirn, 1e-3)
+    hit = tisect.intersect(tp, org, dirn, 1e-3, _tctx(py * cam.image_width + px))
     t = torch.where(torch.isfinite(hit.t), hit.t, torch.ones_like(hit.t))
     org2 = (org + dirn * t[:, None])[:n_bounce]
     d2 = rng.normal(size=(n_bounce, 3)).astype(np.float32)
@@ -148,7 +148,7 @@ def test_intersect_and_hit_attributes_match(name):
     jhit = jisect.intersect(jp, jo, jd, 1e-3, jctx, kernel="jnp")
     jattr = jisect.hit_attributes(jp, jo, jd, jhit)
     to, td = torch.from_numpy(org), torch.from_numpy(dirn)
-    thit = tisect.intersect(tp, to, td, 1e-3)
+    thit = tisect.intersect(tp, to, td, 1e-3, _tctx(torch.arange(n)))
     tattr = tisect.hit_attributes(tp, to, td, thit)
 
     kinds = set(np.asarray(jhit.kind).tolist())
@@ -171,20 +171,31 @@ def test_intersect_and_hit_attributes_match(name):
 
 def test_unported_kernels_raise():
     """Every traversal is ported: the port's kernel names are accepted, the
-    reference's "pallas" and "jnp" are unknown names here.  What is still
-    unported, volumes, raises NotImplementedError in `intersect`."""
+    reference's "pallas" and "jnp" are unknown names here.  Volumes are
+    ported too: `intersect` runs `cornell_smoke` (two box volumes) and some
+    of its rays stop in a volume."""
     for kernel in ("auto", "bvh8", "threaded", "wavefront"):
         assert tisect.check_kernel(kernel) is None  # ported: accepted
     for kernel in ("pallas", "jnp"):
         with pytest.raises(ValueError, match="unknown kernel"):
             tisect.check_kernel(kernel)
     from rust_raytracer_torch import models as tmodels
+    from rust_raytracer_torch.core import rng as trng
     from rust_raytracer_torch.scene import compiler as tcompiler
+    from rust_raytracer_torch.scene import pack as tpack
 
     pack, _ = tcompiler.compile_scene(tmodels.build("cornell_smoke"), "cpu")
-    ray = torch.zeros((1, 3)), torch.ones((1, 3))
-    with pytest.raises(NotImplementedError, match="volumes"):
-        tisect.intersect(pack, *ray, 1e-3)
+    n = 512
+    rng = np.random.default_rng(2)
+    org = torch.from_numpy(rng.uniform(-20, 20, (n, 3)).astype(np.float32))
+    dirn = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    ctx = trng.Ctx(torch.arange(n), torch.zeros(n, dtype=torch.int64), 0, 0)
+    hit = tisect.intersect(pack, org, dirn, 1e-3, ctx)
+    vol = hit.kind == tpack.PRIM_VOLUME
+    assert vol.any()
+    attr = tisect.hit_attributes(pack, org, dirn, hit)
+    assert attr.valid[vol].all() and torch.isfinite(attr.pos[vol]).all()
+    assert (pack.mat_type[attr.mat[vol].long()] == tpack.MAT_ISOTROPIC).all()
 
 
 def test_renderer_cuda_without_cuda_raises():

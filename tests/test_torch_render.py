@@ -27,6 +27,7 @@ from rust_raytracer_torch.render import camera as tcam
 from rust_raytracer_torch.render import film as tfilm
 from rust_raytracer_torch.render import pool as tpool
 from rust_raytracer_torch.render.renderer import Renderer as TRenderer
+from rust_raytracer_torch.utils import metrics as tmetrics
 
 from rust_raytracer_torch.scene import graph as tg
 
@@ -105,10 +106,11 @@ def test_pool_render_matches_jax(mini):
     scene, jr, cam = mini
     want = jr.render(mode="pool").hdr()
     r = TRenderer(scene, cam, batch_size=LANES, device="cpu")
-    metrics = tpool.PoolMetrics()
+    metrics = tmetrics.RenderMetrics()
     got = r.render(mode="pool", metrics=metrics).hdr()
     assert got.shape == want.shape and np.isfinite(got).all()
-    assert metrics.steps > 0 and 0 < metrics.mean_occupancy <= 1
+    occupancy = metrics.summary()["mean_occupancy"]
+    assert metrics.steps > 0 and 0 < occupancy <= LANES
     _image_close(got, want)
 
 
@@ -138,9 +140,9 @@ def test_cornell_pool_render_matches_golden():
 
 
 def test_unported_modes_raise(mini):
-    """What is still unported raises: scenes with volumes.  Both render
-    modes and every port kernel are accepted; the reference's "pallas"
-    kernel and an unknown mode are refused by name."""
+    """Both render modes and every port kernel are accepted; the reference's
+    "pallas" kernel and an unknown mode are refused by name.  Scenes with
+    volumes are ported: cornell_smoke renders in both modes."""
     scene, _, cam = mini
     r = TRenderer(scene, cam, kernel="threaded", device="cpu")
     assert r.kernel == "threaded"
@@ -149,8 +151,13 @@ def test_unported_modes_raise(mini):
         r.render(mode="tiles")
     with pytest.raises(ValueError, match="unknown kernel"):
         TRenderer(scene, cam, kernel="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="volumes"):
-        TRenderer(tmodels.build("cornell_smoke"), cam, device="cpu")
+    smoke = tmodels.build("cornell_smoke")
+    sc = cfg.merge_scene_config(smoke.config, {"output_width": 16})
+    smoke_cam = tcam.camera_from_config(sc, cfg.RenderConfig(samples_per_pixel=4, max_depth=6))
+    r = TRenderer(smoke, smoke_cam, batch_size=512, device="cpu")
+    pool, batch = (r.render(mode=m).hdr() for m in ("pool", "batch"))
+    assert pool.shape == (16, 16, 3) and np.isfinite(pool).all() and pool.mean() > 0
+    np.testing.assert_allclose(pool, batch, rtol=1e-5, atol=1e-6)  # same paths, sum order
 
 
 def _hdr():

@@ -291,10 +291,12 @@ def test_threaded_node_rows(name):
     np.testing.assert_array_equal(links[leaf, 7], -ref[leaf, 8].astype(np.int32))
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     """Import every module of rust_raytracer_torch with `jax` and the JAX
-    package blocked, then build the mini scene with the port's own graph,
-    config and models, and render a 16x16 frame on the CPU in both modes."""
+    package blocked (the walk covers the CLI, the DSL, the importers,
+    metrics and checkpoint), then build the mini scene with the port's own
+    graph, config and models, render a 16x16 frame on the CPU in both
+    modes, and run the CLI on the CPU on cornell_smoke (volumes)."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -304,8 +306,13 @@ def test_port_runs_without_jax():
         import numpy as np, torch
         torch.set_num_threads(2)
         import rust_raytracer_torch
+        walked = set()
         for m in pkgutil.walk_packages(rust_raytracer_torch.__path__, "rust_raytracer_torch."):
             importlib.import_module(m.name)
+            walked.add(m.name[len("rust_raytracer_torch."):])
+        want = {{"__main__", "utils.cli", "utils.config", "scene.dsl", "utils.gltf", "utils.fbx",
+                "utils.collada", "utils.model_import", "utils.metrics", "render.checkpoint"}}
+        assert want <= walked, want - walked
         from rust_raytracer_torch import models
         from rust_raytracer_torch.scene import graph
         from rust_raytracer_torch.utils import config as cfg
@@ -320,6 +327,10 @@ def test_port_runs_without_jax():
         for mode in ("pool", "batch"):
             img = r.render(mode=mode).hdr()
             assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0
+        from rust_raytracer_torch.utils import cli
+        out = {str(tmp_path / "smoke.png")!r}
+        assert cli.main(["cornell_smoke", "-w=12", "-s=1", "--max-depth=3", "-o=" + out],
+                        device="cpu") == 0
         loaded = [k for k, v in sys.modules.items() if v is not None and (
             k.split(".")[0] in ("jax", "rust_raytracer_tpu"))]
         assert not loaded, loaded
@@ -328,4 +339,5 @@ def test_port_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.startswith("ok")
+    assert out.stdout.splitlines()[-1].startswith("ok")  # the CLI logs to stdout before it
+    assert (tmp_path / "smoke.png").exists()

@@ -46,6 +46,7 @@ from rust_raytracer_torch.render import camera as tcam
 from rust_raytracer_torch.render import pool as tpool
 from rust_raytracer_torch.render.renderer import Renderer as TRenderer
 from rust_raytracer_torch.scene import graph as tg
+from rust_raytracer_torch.utils import metrics as tmetrics
 
 from test_torch_scene import mini_dragon_scene, port_pack_from_jax, soup_scene
 
@@ -783,13 +784,14 @@ def test_pool_render_wavefront_matches_bvh8_and_jax():
     cam = tcam.camera_from_config(sc, rc)
     lanes = 1024
     calls = dict(twf.plain_calls)
-    metrics = tpool.PoolMetrics()
+    metrics = tmetrics.RenderMetrics()
     got = TRenderer(scene, cam, batch_size=lanes, kernel="wavefront",
                     device="cpu").render(mode="pool", metrics=metrics).hdr()
     called = {k: twf.plain_calls[k] - calls[k] for k in twf.KERNELS}
     assert metrics.steps > 0 and called == {"wf_cull_compact": metrics.steps, "wf_cull": 0,
                                             "wf_compact": 0, "wf_mt": metrics.steps}, called
-    assert metrics.overflow == 0 and metrics.total_packets == (lanes // 8) * metrics.steps
+    assert (metrics.wf_overflow_packets == 0
+            and metrics.wf_total_packets == (lanes // 8) * metrics.steps)
     exact = TRenderer(scene, cam, batch_size=lanes, kernel="auto", device="cpu")
     np.testing.assert_array_equal(got, exact.render(mode="pool").hdr())
     want = JRenderer(mini_dragon_scene(g), cfg.make_camera(sc, rc), batch_size=lanes,
