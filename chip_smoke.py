@@ -56,6 +56,21 @@ within float sum order; the checkpoint's save time and size at 2^18
 lanes).  The BVH8 and wavefront pool steps must launch the kernels
 STEP_LAUNCHES counts (the wavefront step within STEP_SLACK).
 
+Then the f64 validation dtype and the mesh (parallel/mesh.py): the scene
+of tests/_grad_fd_main.py at f64 through the "jnp" walk on the card against
+the CPU (radiance and gradients within 1e-9 relative, central differences
+within rtol 1e-3 of the gradients, no K1 or K3 launch, an f64 Renderer with
+kernel="auto" refused); cornell_dragon at the main path's size through the
+pool with make_mesh(1) and with two shards on the one card (K1 launches =
+shards x steps, every job issued, the image against the unsharded pool's,
+the rates side by side), the wavefront pool with make_mesh(1) (its overflow
+equal to the unsharded render's), the batch render through K3 with 1 and 2
+shards, and train_step_fn through K3 with 1 and 2 shards (equal after
+normalisation); and a 2-shard pool state saved, loaded and stepped on
+beside the live one (lane state equal bit for bit; the file's size, save
+and load times).  The kernels line gives each kernel's launches on these
+sharded paths (`sharded_launches`).
+
 K1 and K3 test a leaf with the whole warp (rust_raytracer_torch/csrc/
 traverse_common.cuh:warp_leaf_test).  Beside each of
 their times the smoke prints the counts that design answers to, from the
@@ -377,23 +392,26 @@ def pool_step_parity(renderer):
     return max_err
 
 
-def step_split(renderer, camera, card, names, warm=10, steps=5):
+def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None):
     """Time `steps` steady-state pool steps of `renderer`'s path, then
     profile as many more: wall time, device time, and the share of each
     traversal kernel (`names`: its `__global__` name less `_kernel`,
     matched whole).  The profiler
     slows the host, so device busy time is read against the unprofiled
-    wall time.  Raises unless the profiled steps' mean launches a step is
-    within STEP_SLACK[kernel] of STEP_LAUNCHES[kernel]."""
+    wall time.  Without a `mesh`, raises unless the profiled steps' mean
+    launches a step is within STEP_SLACK[kernel] of STEP_LAUNCHES[kernel];
+    with one, the step is the sharded step.  Returns (launches a step, wall
+    ms a step, device busy ms a step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from rust_raytracer_torch.render import pool as poolmod
 
     n_pixels = camera.image_width * camera.image_height
     total = n_pixels * SPP
-    state = poolmod.init_state(LANES, n_pixels, renderer.pack.device)
+    state = poolmod.init_state(LANES, n_pixels, renderer.pack.device,
+                               n_shards=None if mesh is None else mesh.n_local)
     step = poolmod.make_step(renderer.pack, renderer.static, camera, total, SPP,
-                             renderer.seed, kernel=renderer.kernel)
+                             renderer.seed, kernel=renderer.kernel, mesh=mesh)
     for _ in range(warm):
         state = step(renderer.pack, state)
     torch.cuda.synchronize()
@@ -416,7 +434,8 @@ def step_split(renderer, camera, card, names, warm=10, steps=5):
     trav_ms = sum(own.values())
     n_launch = sum(e.count for e in kernels) / steps
     shares = ", ".join(f"{nm} {ms:.3f} ms ({ms / dev_ms:.1%})" for nm, ms in own.items())
-    log(f"pool step split ({renderer.kernel}): wall {wall_ms:.3f} ms/step (steps "
+    tag = renderer.kernel if mesh is None else f"{renderer.kernel}, {mesh.n_shards} shard(s)"
+    log(f"pool step split ({tag}): wall {wall_ms:.3f} ms/step (steps "
         f"{warm + 1}-{warm + steps}, profiler off); steps {warm + steps + 1}-"
         f"{warm + 2 * steps} profiled: wall {prof_ms:.3f} ms/step, device busy "
         f"{dev_ms:.3f} ms/step ({n_launch:.0f} kernels/step), traversal kernels "
@@ -425,9 +444,11 @@ def step_split(renderer, camera, card, names, warm=10, steps=5):
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
             f"x{e.count // steps:<4d} {e.key[:90]}")
-    if abs(n_launch - STEP_LAUNCHES[renderer.kernel]) > STEP_SLACK[renderer.kernel]:
+    if mesh is None and (abs(n_launch - STEP_LAUNCHES[renderer.kernel])
+                         > STEP_SLACK[renderer.kernel]):
         raise AssertionError(f"a {renderer.kernel} pool step launched {n_launch} kernels, not "
                              f"{STEP_LAUNCHES[renderer.kernel]}")
+    return n_launch, wall_ms, dev_ms
 
 
 def device_split(tag, fn, card, names, absent=()):
@@ -1550,6 +1571,277 @@ def cli_volume_resume_phases(scene, camera, renderer, dev, card):
     return cli_launches
 
 
+# ---------------------------------------------------------------- f64, the mesh, sharded checkpoints
+
+def f64_phase(dev, card):
+    """Phase 22: tests/_grad_fd_main.py's scene at f64 through the "jnp"
+    walk on the card against the same on the CPU (radiance and the probed
+    gradients within 1e-9 relative), the card's central differences against
+    its gradients (rtol 1e-3), Renderer(dtype=float64, kernel="auto") on the
+    card refused with TypeError, and no K1 or K3 launch in the phase."""
+    from rust_raytracer_torch.core import rng as vrng
+    from rust_raytracer_torch.ops import bvh8, threaded
+    from rust_raytracer_torch.render import integrator
+    from rust_raytracer_torch.render.camera import Camera
+    from rust_raytracer_torch.render.renderer import Renderer
+    from rust_raytracer_torch.scene import compiler
+
+    f64 = torch.float64
+    fields = ("sph_center", "sph_radius", "pln_corner", "background", "tex_const")
+    cam = Camera(image_width=16, aspect_ratio=1.0, samples_per_pixel=1, max_depth=3,
+                 position=(0, 0.3, 1.6), look_at=(0, 0, 0), focal_length=35.0)
+    k1, k3 = bvh8.launches, threaded.launches
+    out = []
+    for where in (dev, torch.device("cpu")):
+        pack, static = compiler.compile_scene(probe_scene(), where, f64)
+        n = 256
+        ar = torch.arange(n, device=where)
+        px, py, smp = ar % 16, (ar // 16) % 16, torch.zeros_like(ar)
+        ctx = vrng.Ctx(pixel=py * 16 + px, sample=smp, bounce=0, seed=7)
+        org, dirn = cam.generate_rays(px, py, smp, ctx, f64)
+        wgt = torch.cos(torch.arange(n * 3, dtype=f64)).reshape(n, 3).to(where)
+
+        def loss_of(p, differentiable=False):
+            rad = integrator.trace(p, static, org, dirn, ctx, 3, 0.25, kernel="jnp",
+                                   differentiable=differentiable)
+            return rad, (rad * wgt).sum()
+
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rad, _ = loss_of(pack)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        trace_ms = (time.perf_counter() - t0) * 1e3
+        gp = pack.with_grad()
+        _, loss = loss_of(gp, True)
+        grads = dict(zip(fields, torch.autograd.grad(loss, [getattr(gp, f) for f in fields])))
+        floor = int(torch.argmin(pack.pln_corner[:, 1]))
+        probes = [("sph_center", (0, a)) for a in range(3)] + [
+            ("sph_radius", (0,)), ("pln_corner", (floor, 1)), ("background", (1,))]
+        cg = grads["tex_const"].cpu().numpy()
+        probes += [("tex_const", tuple(int(i) for i in np.unravel_index(int(fi), cg.shape)))
+                   for fi in np.argsort(-np.abs(cg).ravel())[:4]
+                   if abs(cg.ravel()[fi]) >= 1e-6]
+        fd = {}
+        for field, idx in probes:
+            vals = []
+            for delta in (1e-6, -1e-6):
+                arr = getattr(pack, field).clone()
+                arr[idx] += delta
+                vals.append(float(loss_of(pack._replace(**{field: arr}))[1]))
+            fd[(field, idx)] = (vals[0] - vals[1]) / 2e-6
+        out.append((rad.cpu(), {f: g.cpu() for f, g in grads.items()}, fd, trace_ms))
+    (r_g, g_g, fd_g, ms_g), (r_c, g_c, _, ms_c) = out
+    rad_gap = float(((r_g - r_c).abs() / r_c.abs().clamp(min=1e-300)).max())
+    grad_gaps = {f: float((g_g[f] - g_c[f]).abs().max() / g_c[f].abs().max().clamp(min=1e-300))
+                 for f in fields}
+    fd_worst = 0.0
+    for (field, idx), v in fd_g.items():
+        an = float(g_g[field][idx])
+        if not abs(an - v) <= 1e-5 + 1e-3 * abs(v):
+            raise AssertionError(f"f64 central difference {field}{idx}: {v} vs autograd {an}")
+        fd_worst = max(fd_worst, abs(an - v) / max(abs(v), 1e-300))
+    try:
+        Renderer(probe_scene(), cam, device=dev, dtype=f64)
+    except TypeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("Renderer(dtype=float64, kernel='auto') on the card did not raise")
+    log(f"f64 on the card (_grad_fd_main scene 16x16, depth 3, kernel jnp): radiance card vs "
+        f"cpu max rel {rad_gap:.3e}, gradients max |d|/max |g| "
+        + ", ".join(f"{f} {v:.3e}" for f, v in grad_gaps.items())
+        + f" (bound 1e-9); {len(fd_g)} central differences (eps 1e-6) vs autograd on the card: "
+        f"worst rel {fd_worst:.3e} (rtol 1e-3, atol 1e-5); f64 trace {ms_g:.1f} ms on the card, "
+        f"{ms_c:.1f} ms on the cpu; auto on the card refused: TypeError ({card})")
+    if not (rad_gap <= 1e-9 and max(grad_gaps.values()) <= 1e-9):
+        raise AssertionError("the card's f64 trace disagrees with the CPU's")
+    if (bvh8.launches, threaded.launches) != (k1, k3) or "jnp" not in refused:
+        raise AssertionError("the f64 phase launched a CUDA traversal kernel")
+    return {"rad_gap": rad_gap, "grad_gap": max(grad_gaps.values()), "fd_worst": fd_worst,
+            "trace_ms": ms_g}
+
+
+def pool_rate(pack, static, camera, dev, kernel, mesh):
+    """One full pool render of `camera`'s image at LANES lanes, sharded over
+    `mesh` (None: the one-device step): (accum, metrics, seconds)."""
+    from rust_raytracer_torch.render import pool as poolmod
+    from rust_raytracer_torch.utils.metrics import RenderMetrics
+
+    m = RenderMetrics()
+    n_pixels = camera.image_width * camera.image_height
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    accum = poolmod.render_pool(pack, static, camera, n_pixels, SPP, LANES, dev, metrics=m,
+                                kernel=kernel, mesh=mesh)
+    torch.cuda.synchronize()
+    return accum, m, time.perf_counter() - t0
+
+
+def mesh_phase(renderer, wf_renderer, b_renderer, camera, wf_overflow, dev, card):
+    """Phase 23: cornell_dragon at the main path's size through every kernel
+    on a mesh of the one card: the BVH8 pool (K1) with make_mesh(1) and two
+    shards on the card, against the unsharded pool (issued = total, K1
+    launches = shards x steps, image within float order, rates side by
+    side); the wavefront pool (fused K2a+K2b, K2c) with make_mesh(1), its
+    overflow equal to the unsharded wavefront render's; the batch render
+    through K3 with 1 and 2 shards (images compared, pixels not bit-equal
+    counted); train_step_fn at GRAD_LANES lanes through K3 with 1 and 2
+    shards (loss and gradients equal after normalisation, rtol 1e-5).
+    Returns the launches of each kernel on these sharded paths."""
+    from rust_raytracer_torch.core import rng as vrng
+    from rust_raytracer_torch.ops import bvh8, threaded
+    from rust_raytracer_torch.ops import wavefront as wf
+    from rust_raytracer_torch.parallel import mesh as pmesh
+    from rust_raytracer_torch.render import integrator
+
+    one, two = pmesh.make_mesh(1), pmesh.make_mesh(device=[dev, dev])
+    total = camera.image_width * camera.image_height * SPP
+    pack, static = renderer.pack, renderer.static
+    launches = Counter()
+
+    def reset():
+        torch.cuda.synchronize()
+        bvh8.launches = bvh8.plain_calls = threaded.launches = threaded.plain_calls = 0
+        for name in wf.KERNELS:
+            wf.launches[name], wf.plain_calls[name] = 0, 0
+
+    base, base_m, base_s = pool_rate(pack, static, camera, dev, "auto", None)
+    base_img = (base / SPP).reshape(camera.image_height, camera.image_width, 3).cpu().numpy()
+    for tag, mesh in (("make_mesh(1)", one), ("2 shards on one card", two)):
+        reset()
+        accum, m, secs = pool_rate(pack, static, camera, dev, "auto", mesh)
+        k1 = bvh8.launches
+        img = (accum / SPP).reshape(base_img.shape).cpu().numpy()
+        agree, rel = image_agreement(img, base_img)
+        log(f"mesh pool, K1, {tag}: {total / secs:.1f} pixel-samples/s ({secs:.3f} s) beside "
+            f"the unsharded pool's {total / base_s:.1f} ({base_s:.3f} s) in this run, "
+            f"{m.steps} steps ({base_m.steps} unsharded), issued {m.samples_issued} of "
+            f"{total}, K1 launches {k1} = {mesh.n_shards} x {m.steps}; image vs unsharded: "
+            f"pixel agreement {agree:.6f}, mean |d|/mean {rel:.3e} ({card})")
+        if not (m.samples_issued == total and k1 == mesh.n_shards * m.steps
+                and bvh8.plain_calls == 0 and agree >= 0.999 and rel <= 1e-5):
+            raise AssertionError(f"the sharded pool ({tag}) disagrees with the unsharded one")
+        launches["bvh8_traverse"] += k1
+        step_split(renderer, camera, card, ("bvh8_traverse",), steps=3, mesh=mesh)
+
+    reset()
+    accum, m, secs = pool_rate(wf_renderer.pack, wf_renderer.static, camera, dev, "wavefront",
+                               one)
+    wf_l = dict(wf.launches)
+    log(f"mesh pool, wavefront, make_mesh(1): {total / secs:.1f} pixel-samples/s ({secs:.3f} s), "
+        f"{m.steps} steps, launches {wf_l}, overflow {m.wf_overflow_packets} packets (the "
+        f"unsharded wavefront render's: {wf_overflow}) ({card})")
+    if not (m.wf_overflow_packets == wf_overflow and wf_l["wf_cull_compact"] == m.steps
+            == wf_l["wf_mt"] and wf_l["wf_cull"] == wf_l["wf_compact"] == 0
+            and m.samples_issued == total):
+        raise AssertionError("the 1-shard wavefront pool differs from the unsharded one")
+    for name, v in wf_l.items():
+        launches[name] += v
+
+    imgs = {}
+    for n, mesh in ((1, one), (2, two)):
+        reset()
+        b_renderer.mesh = mesh
+        t0 = time.perf_counter()
+        imgs[n] = b_renderer.render(mode="batch").hdr()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches["threaded_traverse"] += threaded.launches
+        log(f"mesh batch render, K3, {n} shard(s): {total / secs:.1f} pixel-samples/s "
+            f"({secs:.3f} s), K3 launches {threaded.launches} ({card})")
+        if not (threaded.launches > 0 and threaded.plain_calls == 0):
+            raise AssertionError("the sharded batch render launched no K3 kernel")
+    b_renderer.mesh = None
+    agree, rel = image_agreement(imgs[2], imgs[1])
+    n_diff = int((imgs[2] != imgs[1]).any(axis=-1).sum())
+    log(f"mesh batch images, 2 shards vs 1: {n_diff} of {imgs[1].shape[0] * imgs[1].shape[1]} "
+        f"pixels not bit-equal, pixel agreement {agree:.6f}, mean |d|/mean {rel:.3e}")
+    if not (agree >= 0.999 and rel <= 1e-5):
+        raise AssertionError("the 2-shard batch render disagrees with the 1-shard one")
+
+    tpack = b_renderer.pack
+    ar = torch.arange(GRAD_LANES, device=dev)
+    px = ar % camera.image_width
+    py = (ar // camera.image_width) % camera.image_height
+    smp = torch.zeros_like(ar)
+
+    def batch_fn(p, px, py, sample, seed):
+        ctx = vrng.Ctx(pixel=py * camera.image_width + px, sample=sample, bounce=0, seed=seed)
+        org, dirn = camera.generate_rays(px, py, sample, ctx)
+        return integrator.trace(p, b_renderer.static, org, dirn, ctx, DEPTH,
+                                camera.light_bias, compact=False, differentiable=True,
+                                kernel="threaded")
+
+    res = {}
+    for n, mesh in ((1, one), (2, two)):
+        reset()
+        step = pmesh.train_step_fn(batch_fn, lambda r, t: (r ** 2).mean(), mesh)
+        t0 = time.perf_counter()
+        loss, grads = step(tpack, px, py, smp, 0, torch.zeros((GRAD_LANES, 3), device=dev))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches["threaded_traverse"] += threaded.launches
+        res[n] = (float(loss) / n, {f: g / n for f, g in zip(tpack.float_fields(), grads)})
+        log(f"mesh train_step_fn, K3, {n} shard(s): {GRAD_LANES} lanes, depth {DEPTH}: "
+            f"{secs * 1e3:.1f} ms, K3 launches {threaded.launches} ({card})")
+    loss_gap = abs(res[2][0] - res[1][0]) / abs(res[1][0])
+    gap = grad_gap(res[2][1], res[1][1])
+    log(f"mesh train_step_fn, 2 shards / 2 vs 1 shard: loss rel {loss_gap:.3e}, gradients max "
+        f"|d|/max |g| {gap:.3e} (bound 1e-5)")
+    if not (loss_gap <= 1e-5 and gap <= 1e-5):
+        raise AssertionError("train_step_fn at 2 shards disagrees with 1 shard")
+    return dict(launches)
+
+
+def sharded_checkpoint(pack, static, camera, dev, card):
+    """Phase 24: a 2-shard pool state of the main path (2 shards on the one
+    card) saved after 20 steps and loaded; 20 more steps from each: lane
+    state equal bit for bit, next_flat per shard equal.  The file's size
+    and its save and load times at LANES lanes."""
+    from rust_raytracer_torch.parallel import mesh as pmesh
+    from rust_raytracer_torch.render import checkpoint as ckpt
+    from rust_raytracer_torch.render import pool as poolmod
+
+    mesh = pmesh.make_mesh(device=[dev, dev])
+    n_pixels = camera.image_width * camera.image_height
+    step = poolmod.make_step(pack, static, camera, n_pixels * SPP, SPP, 0, mesh=mesh)
+    state = poolmod.init_state(LANES, n_pixels, dev, n_shards=2)
+    for _ in range(20):
+        state = step(pack, state)
+    path = os.path.join(HERE, "build", "chip_smoke_sharded.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_pool_state(path, state, {"step_count": 20})
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    loaded, _ = ckpt.load_pool_state(path, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if loaded.accum.shape != state.accum.shape or not all(
+            torch.equal(getattr(loaded, f), getattr(state, f)) for f in poolmod.PoolState._fields):
+        raise AssertionError("the reloaded sharded checkpoint differs from the saved state")
+    a, b = state, loaded
+    for _ in range(20):
+        a, b = step(pack, a), step(pack, b)
+    lane = poolmod.PoolState._fields[:8] + ("next_flat", "overflow")
+    same = [f for f in lane if torch.equal(getattr(a, f), getattr(b, f))]
+    d_acc = (a.accum - b.accum).abs().max().item()
+    scale = a.accum.abs().max().item()
+    log(f"sharded checkpoint on the card (2 shards, {LANES} lanes, cornell_dragon "
+        f"{camera.image_width}x{camera.image_height}): accum {tuple(state.accum.shape)}, "
+        f"next_flat {state.next_flat.tolist()} at step 20, file {size} bytes, save "
+        f"{save_s * 1e3:.1f} ms, load {load_s * 1e3:.1f} ms; 20 steps on from the file vs "
+        f"straight on: lane state equal bit for bit ({len(same)} of {len(lane)} fields), "
+        f"next_flat {a.next_flat.tolist()} vs {b.next_flat.tolist()}, accum max |d| "
+        f"{d_acc:.3e} of {scale:.3e} ({card})")
+    if len(same) != len(lane) or d_acc > 1e-5 * scale:
+        raise AssertionError("the sharded pool resumed from its checkpoint diverged")
+    os.unlink(path)
+    return {"bytes": size, "save_ms": save_s * 1e3, "load_ms": load_s * 1e3}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1944,6 +2236,17 @@ def main():
     # checkpoint/resume on the card ----
     cli_launches = cli_volume_resume_phases(scene, camera, renderer, dev, card)
 
+    # ---- 22. the f64 validation dtype on the card ----
+    f64_phase(dev, card)
+
+    # ---- 23. the mesh on the card, through every kernel (this slice's
+    # main path: each sharded path's launches counted from 0) ----
+    sharded = mesh_phase(renderer, wf_renderer, b_renderer, camera,
+                         wf_metrics.wf_overflow_packets, dev, card)
+
+    # ---- 24. the sharded checkpoint on the card ----
+    sharded_checkpoint(renderer.pack, renderer.static, camera, dev, card)
+
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")
     loaded = [m for m in sys.modules if m.split(".")[0] == "rust_raytracer_tpu"]
@@ -1991,6 +2294,7 @@ def main():
         "plain_ms_primary": times["primary"][1],
         "render_device_ms": split["bvh8_traverse"][0],
         "cli_launches": cli_launches["bvh8_traverse"],
+        "sharded_launches": sharded.get("bvh8_traverse", 0),
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2004,6 +2308,7 @@ def main():
         "bound_by": wf_bounds[name][1],
         "library_ms": None,
         "parity_launches": parity_launches[name],
+        "sharded_launches": sharded.get(name, 0),
         **{key: v for key, v in e.items() if key not in ("source", "replaces")},
     } for name, e in wf_json.items()] + [{
         "name": "threaded_traverse",
@@ -2021,6 +2326,7 @@ def main():
         "plain_ms_primary": k3_time["primary"][1],
         "render_device_ms": k3_split["batch render"][0],
         "step_device_ms": k3_split["fwd+bwd step (none)"][0],
+        "sharded_launches": sharded.get("threaded_traverse", 0),
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -103,35 +103,122 @@ def deg_to_rad(degrees):
     return degrees / 180.0 * math.pi
 
 
-def square_to_unit_circle(u1, u2):
+# ---------------------------------------------------------------------------
+# f32 functions of the RNG's f32 uniforms in the f64 validation trace.  The
+# reference computes them in f32 at any trace dtype, on the CPU through
+# glibc's sinf/cosf, a correctly rounded sqrt and a fused multiply-add; the
+# f64 trace of the port computes the same f32 values from f64 operations, so
+# they are equal on the CPU and the card, and to the reference's.  The f32
+# trace keeps torch's own f32 functions.
+# ---------------------------------------------------------------------------
+
+# glibc's sincosf constants (sysdeps/ieee754/flt-32/s_sincosf_data.c)
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")  # 2 / pi * 2^24
+_HPI = float.fromhex("0x1.921FB54442D18p0")
+_C = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_S = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13"))
+
+
+def _top12(bits: int) -> int:
+    return (bits >> 20) & 0x7FF
+
+
+_TOP12_PIO4 = _top12(0x3F490FDB)    # f32 pi / 4
+_TOP12_TINY = _top12(0x39800000)    # 0x1p-12f
+_TOP12_120 = _top12(0x42F00000)     # 120.0f
+
+
+def cos_sin32(phi):
+    """(cos, sin) of the f32 tensor `phi` as f32, equal to glibc's cosf and
+    sinf for |phi| < 120 (the sampling angles are in [0, 2 pi)); beyond, the
+    f64 cos and sin rounded to f32."""
+    top = (phi.view(torch.int32) >> 20) & 0x7FF
+    x = phi.double()
+    small = top < _TOP12_PIO4
+    r = x * _HPI_INV
+    n = torch.where(small, 0, ((r.to(torch.int32) + 0x800000) >> 24))
+    xr = torch.where(small, x, x - n.double() * _HPI)
+    sign = torch.where(((n & 3) == 1) | ((n & 3) == 2), -1.0, 1.0).double()
+    xs = xr * sign
+    x2 = xr * xr
+    # sine polynomial on xs, cosine polynomial on x2 (coefficients negated
+    # in quadrants 2 and 3, glibc's second table)
+    x3 = xs * x2
+    s1 = _S[1] + x2 * _S[2]
+    x7 = x3 * x2
+    p_sin = (xs + x3 * _S[0]) + x7 * s1
+    flip = torch.where((n & 2) != 0, -1.0, 1.0).double()
+    x4 = x2 * x2
+    c2 = _C[3] * flip + x2 * (_C[4] * flip)
+    c1 = _C[0] * flip + x2 * (_C[1] * flip)
+    x6 = x4 * x2
+    p_cos = (c1 + x4 * (_C[2] * flip)) + x6 * c2
+    odd = (n & 1) != 0
+    cos = torch.where(odd, p_sin, p_cos)
+    sin = torch.where(odd, p_cos, p_sin)
+    tiny = top < _TOP12_TINY
+    cos = torch.where(tiny, 1.0, cos)
+    sin = torch.where(tiny, x, sin)
+    big = top >= _TOP12_120
+    cos = torch.where(big, torch.cos(x), cos)
+    sin = torch.where(big, torch.sin(x), sin)
+    return cos.float(), sin.float()
+
+
+def sqrt32(x):
+    """Correctly rounded f32 sqrt of an f32 tensor (sqrt in f64, rounded)."""
+    return torch.sqrt(x.double()).float()
+
+
+def safe_sqrt32(x, eps: float = 1e-20):
+    return sqrt32(torch.clamp(x, min=eps))
+
+
+def _cos_sin(phi, exact32):
+    return cos_sin32(phi) if exact32 else (torch.cos(phi), torch.sin(phi))
+
+
+def square_to_unit_circle(u1, u2, exact32: bool = False):
     """Uniform point on the unit circle RIM — the reference's
     `random_in_unit_disk` (vec4.rs:35-40) normalizes a 2D gaussian, which
-    gives ring bokeh; reproduced exactly."""
+    gives ring bokeh; reproduced exactly.  `exact32` (the f64 trace)
+    computes the f32 values as the reference's CPU build does (cos_sin32)."""
     del u2
     phi = 2.0 * math.pi * u1
-    return torch.stack([torch.cos(phi), torch.sin(phi)], dim=-1)
+    return torch.stack(_cos_sin(phi, exact32), dim=-1)
 
 
-def square_to_uniform_sphere(u1, u2):
+def square_to_uniform_sphere(u1, u2, exact32: bool = False):
     z = 1.0 - 2.0 * u1
-    r = safe_sqrt(1.0 - z * z)
+    if exact32:
+        # 1 - z * z fused into one rounding, as the reference's CPU build
+        r = safe_sqrt32((1.0 - z.double() * z.double()).float())
+    else:
+        r = safe_sqrt(1.0 - z * z)
     phi = 2.0 * math.pi * u2
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+    cos, sin = _cos_sin(phi, exact32)
+    return torch.stack([r * cos, r * sin, z], dim=-1)
 
 
-def square_to_cosine_hemisphere(u1, u2):
+def square_to_cosine_hemisphere(u1, u2, exact32: bool = False):
     """Malley cosine-weighted hemisphere about +z (vec4.rs:50-61)."""
     phi = u1 * 2.0 * math.pi
-    sqrt_r2 = safe_sqrt(u2)
-    x = torch.cos(phi) * sqrt_r2
-    y = torch.sin(phi) * sqrt_r2
-    z = safe_sqrt(1.0 - u2)
+    root = safe_sqrt32 if exact32 else safe_sqrt
+    sqrt_r2 = root(u2)
+    cos, sin = _cos_sin(phi, exact32)
+    x = cos * sqrt_r2
+    y = sin * sqrt_r2
+    z = root(1.0 - u2)
     return torch.stack([x, y, z], dim=-1)
 
 
-def square_to_sphere_cone(u1, u2, cos_theta_max):
+def square_to_sphere_cone(u1, u2, cos_theta_max, exact32: bool = False):
     """Uniform direction in a cone about +z (sphere.rs:123-145)."""
     phi = u1 * 2.0 * math.pi
     z = 1.0 + u2 * (cos_theta_max - 1.0)
     r = safe_sqrt(1.0 - z * z)
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+    cos, sin = _cos_sin(phi, exact32)
+    return torch.stack([r * cos, r * sin, z], dim=-1)

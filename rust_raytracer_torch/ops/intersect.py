@@ -41,12 +41,30 @@ SUN_THETA_MAX = 1e-3  # reference: sun.rs:14
 # overflow is counted).  "auto" is the BVH8 walk where it can run the scene
 # and the threaded walk where it cannot (bvh8.fits: no BVH8, or a BVH8 too
 # deep for the kernel's stack) — decided from the pack, before any launch.
-KERNELS = ("auto", "bvh8", "threaded", "wavefront")
+# "jnp", the reference's name for its portable walk, is the threaded-BVH
+# walk in torch ops on any device, in the pack's dtype: the only walk of an
+# f64 pack (the CUDA kernels are f32), which "auto" picks on the CPU.
+KERNELS = ("auto", "bvh8", "threaded", "wavefront", "jnp")
 
 
 def check_kernel(kernel: str) -> None:
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; choose from {KERNELS}")
+
+
+def resolve_kernel(kernel: str, pack) -> str:
+    """The walk `kernel` names for this pack: an f64 pack takes only "jnp";
+    "auto" resolves to it on the CPU, and on CUDA any other choice raises
+    TypeError (the card never picks the plain walk unasked).  An f32 pack's
+    choice is returned as given."""
+    check_kernel(kernel)
+    if pack.dtype == torch.float32 or kernel == "jnp":
+        return kernel
+    if kernel == "auto" and pack.device.type == "cpu":
+        return "jnp"
+    raise TypeError(
+        f"kernel={kernel!r} with a {pack.dtype} pack on {pack.device}: the CUDA "
+        "traversal kernels are float32; an f64 pack traces with kernel='jnp'")
 
 
 class Hit(NamedTuple):
@@ -179,8 +197,11 @@ def intersect_triangles(pack, org, dirn, t_min, t_max, kernel: str = "auto",
     device memory."""
     n = org.shape[0]
     ov = torch.zeros((), dtype=torch.int64, device=org.device)
+    kernel = resolve_kernel(kernel, pack)
     if pack.tri_v0.shape[0] == 0 or pack.bvh_min.shape[0] == 0:
         t, i = t_max, _full(n, -1, torch.int32, org.device)
+    elif kernel == "jnp":
+        t, i = intersect_triangles_jnp(pack, org, dirn, t_min, t_max)
     elif kernel == "wavefront":
         if pack.wf_cl_lo.shape[0] == 0:
             raise ValueError(
@@ -195,6 +216,19 @@ def intersect_triangles(pack, org, dirn, t_min, t_max, kernel: str = "auto",
     if return_stats:
         return t, i, {"wf_overflow": ov}
     return t, i
+
+
+def intersect_triangles_jnp(pack, org, dirn, t_min, t_max):
+    """The reference's portable walk (kernel="jnp", ops/intersect.py:430-497
+    with triangle_hit at :268): the threaded BVH in torch ops, reading
+    `bvh_min`/`bvh_max` and `tri_v0`/`tri_e1`/`tri_e2`/`tri_hit_back` in the
+    pack's dtype, with the caller's `t_min`.  It is threaded.traverse_plain
+    on those rows: within a leaf the lowest slot wins at equal t, as the
+    reference's sequential `t < best`.  Returns (t, slot) with t == t_max on
+    a miss, the convention hit_attributes reads."""
+    rows = torch.cat([pack.tri_v0, pack.tri_e1, pack.tri_e2,
+                      pack.tri_hit_back.to(pack.tri_v0.dtype)[:, None]], dim=1)
+    return threaded.traverse_plain(pack, org, dirn, t_max, rows=rows, t_min=float(t_min))
 
 
 # ---------------------------------------------------------------------------
@@ -332,10 +366,10 @@ def _intersect(pack, org, dirn, t_min, rng_ctx, alive, kernel, return_stats):
     n = org.shape[0]
     dev, dtype = org.device, org.dtype
     inf = _full(n, float("inf"), dtype, dev)
-    t_min = torch.full((n,), t_min, dtype=dtype, device=dev)
+    t_min_lanes = torch.full((n,), t_min, dtype=dtype, device=dev)
 
-    t_sph, i_sph = intersect_spheres(pack, org, dirn, t_min, inf)
-    t_pln, i_pln = intersect_planes(pack, org, dirn, t_min, inf)
+    t_sph, i_sph = intersect_spheres(pack, org, dirn, t_min_lanes, inf)
+    t_pln, i_pln = intersect_planes(pack, org, dirn, t_min_lanes, inf)
     tri_tmax = torch.minimum(t_sph, t_pln)
     if alive is not None:
         tri_tmax = torch.where(alive, tri_tmax, torch.zeros_like(tri_tmax))
@@ -355,7 +389,7 @@ def _intersect(pack, org, dirn, t_min, rng_ctx, alive, kernel, return_stats):
     prim = torch.where(finite, prim, -1).to(torch.int32)
 
     if pack.vol_kinds:
-        t_vol, i_vol = intersect_volumes(pack, org, dirn, t_min, t_best, rng_ctx)
+        t_vol, i_vol = intersect_volumes(pack, org, dirn, t_min_lanes, t_best, rng_ctx)
         vol_hit = i_vol >= 0
         t_best = torch.where(vol_hit, t_vol, t_best)
         kind = torch.where(vol_hit, sp.PRIM_VOLUME, kind).to(torch.int32)

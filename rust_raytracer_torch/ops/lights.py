@@ -44,7 +44,8 @@ def _sphere_sample(pack, li, origin, rng_ctx, salt, proxy=False):
     d2 = vmath.length_squared(to_c)
     cos_theta_max = vmath.safe_sqrt(1.0 - radius * radius / torch.clamp(d2, min=1e-20))
     u1, u2, _, _ = rng_ctx.uniform4(rng.Streams.LIGHT_SAMPLE + salt)
-    local = vmath.square_to_sphere_cone(u1, u2, cos_theta_max)
+    local = vmath.square_to_sphere_cone(u1, u2, cos_theta_max,
+                                        exact32=origin.dtype == torch.float64)
     u, v, w = vmath.onb_from_vec(vmath.normalize(to_c, 1e-20))
     return vmath.onb_transform(u, v, w, local)
 
@@ -116,7 +117,8 @@ def lights_sample(pack, light_list: Sequence[Tuple[int, int]], origin, rng_ctx):
             d = _plane_sample(pack, li, origin, rng_ctx, slot)
         elif kind == sp.LIGHT_SKY:
             u1, u2, _, _ = rng_ctx.uniform4(rng.Streams.LIGHT_SAMPLE + slot)
-            d = vmath.square_to_uniform_sphere(u1, u2)
+            d = vmath.square_to_uniform_sphere(u1, u2,
+                                               exact32=origin.dtype == torch.float64)
         elif kind == sp.LIGHT_SUN:
             d = pack.sun_dir[li].expand(n, 3)
         else:

@@ -39,7 +39,8 @@ def _random_unit(rng_ctx, stream):
 def _cosine_about(normal, rng_ctx, stream):
     """Cosine-weighted direction about `normal` (pdf/cosine.rs)."""
     u1, u2, _, _ = rng_ctx.uniform4(stream)
-    local = vmath.square_to_cosine_hemisphere(u1, u2)
+    local = vmath.square_to_cosine_hemisphere(u1, u2,
+                                              exact32=normal.dtype == torch.float64)
     u, v, w = vmath.onb_from_vec(normal)
     return vmath.onb_transform(u, v, w, local)
 

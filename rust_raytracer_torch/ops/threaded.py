@@ -96,10 +96,10 @@ def intersect_triangles_threaded(pack, org, dirn, t_min, t_max):
     return traverse_plain(pack, org, dirn, t_max)
 
 
-def mt_rows(o, d, rows, best):
-    """Möller–Trumbore of rays (L, 1) against triangle rows (L, K, 12) in
+def mt_rows(o, d, rows, best, t_min=T_MIN_STATIC):
+    """Möller–Trumbore of rays (L, 1) against triangle rows (L, K, >= 10) in
     the reference kernel's operation order; returns (L, K) t with +inf
-    where a triangle is rejected (including t >= best)."""
+    where a triangle is rejected (including t <= t_min and t >= best)."""
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     v0x, v0y, v0z = rows[..., 0], rows[..., 1], rows[..., 2]
     e1x, e1y, e1z = rows[..., 3], rows[..., 4], rows[..., 5]
@@ -122,7 +122,7 @@ def mt_rows(o, d, rows, best):
     w = (dx * qx + dy * qy + dz * qz) * inv_det
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     ok &= (u >= 0.0) & (u <= 1.0) & (w >= 0.0) & (u + w <= 1.0)
-    ok &= (t > T_MIN_STATIC) & (t < best[:, None])
+    ok &= (t > t_min) & (t < best[:, None])
     return torch.where(ok, t, torch.full_like(t, float("inf")))
 
 
@@ -138,11 +138,14 @@ def warps_of(lanes):
 _LEAF_BLOCK = 1 << 16
 
 
-def traverse_plain(pack, org, dirn, t_max, counts=None):
+def traverse_plain(pack, org, dirn, t_max, counts=None, rows=None, t_min=T_MIN_STATIC):
     """Plain PyTorch version of the exact traversals: the reference's
     threaded-BVH walk (ops/intersect.py:436-497), every active lane
     advancing one node per step, with the kernels' contract (static t_min,
     t == t_max on a miss, slot ids into the padded triangle table).
+    `rows` (n_slots, >= 10), the triangle rows tested (v0, e1, e2,
+    hit_back), default the f32 `tri_rows`; ops/intersect.py's "jnp" walk
+    passes them in the pack's dtype, with its own `t_min`.
 
     Within a leaf the lowest slot wins at equal t; across leaves a later
     leaf must be strictly closer — the reference's sequential `t < best`.
@@ -169,7 +172,8 @@ def traverse_plain(pack, org, dirn, t_max, counts=None):
     hit_link = pack.bvh_hit_link.to(torch.int64)
     miss_link = pack.bvh_miss_link.to(torch.int64)
     leaf_start = pack.bvh_leaf_start.to(torch.int64)
-    rows = pack.tri_rows.view(-1, CLUSTER, 12)
+    rows = pack.tri_rows if rows is None else rows
+    rows = rows.view(-1, CLUSTER, rows.shape[1])
     k_idx = torch.arange(CLUSTER, device=dev)
     if counts is not None:
         visits = torch.zeros((), dtype=torch.int64, device=dev)
@@ -188,7 +192,7 @@ def traverse_plain(pack, org, dirn, t_max, counts=None):
         far = torch.maximum(t0, t1)
         t_near = torch.maximum(
             torch.maximum(torch.maximum(near[:, 0], near[:, 1]), near[:, 2]),
-            torch.full_like(bt, T_MIN_STATIC))
+            torch.full_like(bt, t_min))
         t_far = torch.minimum(
             torch.minimum(torch.minimum(far[:, 0], far[:, 1]), far[:, 2]), bt)
         box_hit = t_near <= t_far
@@ -200,7 +204,7 @@ def traverse_plain(pack, org, dirn, t_max, counts=None):
             sel = leaf_sel[s:s + _LEAF_BLOCK]
             ln = lanes[sel]
             start = ls[sel]
-            tt = mt_rows(org[ln], dirn[ln], rows[start // CLUSTER], best_t[ln])
+            tt = mt_rows(org[ln], dirn[ln], rows[start // CLUSTER], best_t[ln], t_min)
             tmin = tt.min(dim=1).values
             first = torch.where(tt == tmin[:, None], k_idx, CLUSTER).min(dim=1).values
             better = tmin < best_t[ln]

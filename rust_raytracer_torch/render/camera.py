@@ -81,31 +81,34 @@ class Camera:
         self.actual_spp = self.thread_count * self.sqrt_spt * self.sqrt_spt
         self._consts = {}
 
-    def generate_rays(self, px, py, sample_id, rng_ctx):
+    def generate_rays(self, px, py, sample_id, rng_ctx, dtype=torch.float32):
         """Batched `get_ray`: (N,) integer pixel coords + sample ids ->
-        (org, dir), float32 on the device of `px`.
+        (org, dir) of `dtype` (float32, or float64 for the validation
+        trace) on the device of `px`.  The jitter uniforms are f32 at any
+        dtype and promote, as the reference's (core/rng.py).
 
         Within each virtual thread, sample j maps to the (sx, sy) cell of a
         sqrt_spt x sqrt_spt grid (camera.rs:334-341).
         """
         dev = px.device
-        f32 = torch.float32
-        if dev not in self._consts:
-            # host geometry as f32 device tensors, copied once per device
-            self._consts[dev] = {
+        key = (dev, dtype)
+        if key not in self._consts:
+            # host geometry as device tensors of `dtype`, copied once per
+            # device and dtype
+            self._consts[key] = {
                 k: torch.tensor(np.asarray(getattr(self, k), np.float64),
-                                dtype=f32, device=dev)
+                                dtype=dtype, device=dev)
                 for k in ("position", "first_pixel", "pixel_delta_u",
                           "pixel_delta_v")
             }
-            self._consts[dev]["bu"] = torch.tensor(self.basis[0], dtype=f32, device=dev)
-            self._consts[dev]["bv"] = torch.tensor(self.basis[1], dtype=f32, device=dev)
-        const = self._consts[dev]
+            self._consts[key]["bu"] = torch.tensor(self.basis[0], dtype=dtype, device=dev)
+            self._consts[key]["bv"] = torch.tensor(self.basis[1], dtype=dtype, device=dev)
+        const = self._consts[key]
 
         spt = self.sqrt_spt * self.sqrt_spt
         j = sample_id % spt
-        sx = (j % self.sqrt_spt).to(f32)
-        sy = (j // self.sqrt_spt).to(f32)
+        sx = (j % self.sqrt_spt).to(dtype)
+        sy = (j // self.sqrt_spt).to(dtype)
         inv_sqrt_spt = 1.0 / self.sqrt_spt
 
         jx, jy, _, _ = rng_ctx.uniform4(vrng.Streams.PIXEL_JITTER)
@@ -115,13 +118,13 @@ class Camera:
         pos = const["position"]
         pixel_sample = (
             const["first_pixel"]
-            + const["pixel_delta_u"] * (px.to(f32) + ox)[:, None]
-            + const["pixel_delta_v"] * (py.to(f32) + oy)[:, None]
+            + const["pixel_delta_u"] * (px.to(dtype) + ox)[:, None]
+            + const["pixel_delta_v"] * (py.to(dtype) + oy)[:, None]
         )
 
         if self.aperture_radius is not None:
             c1, c2, _, _ = rng_ctx.uniform4(vrng.Streams.APERTURE)
-            rim = vmath.square_to_unit_circle(c1, c2)
+            rim = vmath.square_to_unit_circle(c1, c2, exact32=dtype == torch.float64)
             org = pos + (
                 const["bu"] * rim[:, 0:1] + const["bv"] * rim[:, 1:2]
             ) * self.aperture_radius

@@ -13,9 +13,13 @@ it equals the uninterrupted image up to the order of each pixel's sum,
 because index_add on CUDA adds in no fixed order (render/pool.py).
 
 The file's fields, meta keys and `params_hash` are the reference's, so
-`load_pool_state` also reads a file the JAX package wrote: it drops that
-file's shard axis of 1 (`accum` (1, n_pixels, 3), `next_flat` and `overflow`
-(1,)) and widens its uint32 ids to the port's int64.
+`load_pool_state` also reads a file the JAX package wrote, and the
+reference reads a sharded file of the port.  A sharded state (render/pool.py
+with a mesh) keeps its shard axis (`accum` (n_shards, n_pixels, 3),
+`next_flat` and `overflow` (n_shards,)) through save and load; a file with
+one shard, as the reference writes every one-device pool, loads without it,
+as the port's one-device state.  The reference's uint32 ids widen to the
+port's int64.  `render_pool_resumable` is one-device, as the reference's.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from . import pool as poolmod
 _FIELDS = ("org", "dirn", "throughput", "radiance", "pixel", "sample",
            "bounce", "active", "accum", "next_flat", "overflow")
 _INT_FIELDS = ("pixel", "sample", "bounce", "next_flat", "overflow")
-# fields with one row a shard in a file of the JAX package
+# fields with one row a shard in a sharded state
 _SHARDED = ("accum", "next_flat", "overflow")
 
 
@@ -58,19 +62,16 @@ def save_pool_state(path: str, state: poolmod.PoolState, meta: dict = None):
 
 def load_pool_state(path: str, device):
     """Returns (PoolState on `device`, meta dict).  A file of the JAX
-    package loads too (module docstring); a file with more than one shard
-    raises ValueError."""
+    package loads too; a file of n > 1 shards keeps its shard axis (module
+    docstring)."""
     with np.load(path) as z:
         arrays = {f: z[f] for f in _FIELDS if f in z.files}
         meta = {k[5:]: z[k] for k in z.files if k.startswith("meta_")}
     # checkpoints written before the overflow counter existed load as 0
     if "overflow" not in arrays:
         arrays["overflow"] = np.zeros(arrays["next_flat"].shape, np.int64)
-    if arrays["accum"].ndim == 3:
+    if arrays["accum"].ndim == 3 and arrays["accum"].shape[0] == 1:
         for f in _SHARDED:
-            if arrays[f].shape[0] != 1:
-                raise ValueError(f"{path}: {f} holds {arrays[f].shape[0]} shards; "
-                                 "the port's pool runs on one device")
             arrays[f] = arrays[f][0]
     for f in _INT_FIELDS:
         arrays[f] = arrays[f].astype(np.int64)
@@ -100,7 +101,7 @@ def render_pool_resumable(pack, static, camera, n_pixels: int, spp: int,
                           n_lanes: int, device, seed=0,
                           steps_per_poll: int = poolmod.STEPS_PER_POLL,
                           kernel: str = "auto", checkpoint_path: str = None,
-                          checkpoint_every_steps: int = 200):
+                          checkpoint_every_steps: int = 200, dtype=torch.float32):
     """render_pool with periodic checkpoints and resume.
 
     If checkpoint_path exists, rendering continues from it (ValueError if
@@ -123,7 +124,7 @@ def render_pool_resumable(pack, static, camera, n_pixels: int, spp: int,
         if state.org.shape[0] != n_lanes:
             raise ValueError(f"checkpoint lane count {state.org.shape[0]} != {n_lanes}")
     else:
-        state = poolmod.init_state(n_lanes, n_pixels, device)
+        state = poolmod.init_state(n_lanes, n_pixels, device, dtype)
     step = poolmod.make_step(pack, static, camera, total, spp, seed, kernel=kernel)
     since = 0
 

@@ -64,11 +64,27 @@ class Film:
 
     def save(self, path: str, tonemap: str = "aces"):
         """Write a .ppm (binary P6) or, otherwise, a PNG."""
-        img = self.to_image(tonemap)
         if path.endswith(".ppm"):
-            data = b"P6\n%d %d\n255\n" % (self.width, self.height) + img.tobytes()
-        else:
-            data = encode_png(img)
+            return self.save_ppm(path, tonemap)
         with open(path, "wb") as f:
-            f.write(data)
+            f.write(encode_png(self.to_image(tonemap)))
+        return path
+
+    def save_ppm(self, path: str, tonemap: str = "aces"):
+        """Binary P6 PPM through the standard tonemap chain."""
+        img = self.to_image(tonemap)
+        with open(path, "wb") as f:
+            f.write(b"P6\n%d %d\n255\n" % (self.width, self.height) + img.tobytes())
+        return path
+
+    def save_ppm_p3(self, path: str):
+        """ASCII P3 PPM with gamma 1/2.2, the reference's legacy writer
+        (ppm.rs:9-38): per channel (clamp(x^(1/2.2), 0, 1) * 255.999) as
+        u8, row-major, one 'r g b' line per pixel, from the raw buffer (no
+        ACES/sRGB chain)."""
+        mapped = np.clip(np.power(np.maximum(self.hdr(), 0.0), 1.0 / 2.2), 0.0, 1.0)
+        q = (mapped * 255.999).astype(np.uint8)
+        with open(path, "w") as f:
+            f.write(f"P3\n{self.width} {self.height}\n255\n")
+            f.write("".join(f"{r} {g} {b}\n" for r, g, b in q.reshape(-1, 3)))
         return path

@@ -1,12 +1,14 @@
 """Render orchestration (port of rust_raytracer_tpu/render/renderer.py:
 `Renderer.__init__`, `render`, `render_pool`, `render_batched`).
 
-The scene compiles once onto the given device.  `render(mode="pool")` runs
-the persistent ray pool (render/pool.py); `render(mode="batch")` traces the
-flattened (pixel, sample) grid in fixed-size batches through
-`integrator.trace`.  Both return a Film.  Because the RNG is keyed by
-(pixel, sample, bounce), the two schedules trace the same paths; they
-differ only in the order of each pixel's sum.
+The scene compiles once onto the given device, in the given dtype (f32, or
+f64 for the validation trace, which runs the "jnp" walk).
+`render(mode="pool")` runs the persistent ray pool (render/pool.py);
+`render(mode="batch")` traces the flattened (pixel, sample) grid in
+fixed-size batches through `integrator.trace`.  Both return a Film.
+Because the RNG is keyed by (pixel, sample, bounce), the two schedules
+trace the same paths; they differ only in the order of each pixel's sum.
+With a `mesh` (parallel/mesh.py) both schedules shard their lanes over it.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from ..core import rng as vrng
 from ..ops import intersect as isect
+from ..parallel import mesh as pmesh
 from ..scene import compiler as scompiler
 from ..scene import graph as sgraph
 from ..utils import metrics as metricsmod
@@ -35,7 +38,8 @@ MODES = ("pool", "batch")
 @dataclasses.dataclass
 class BatchMetrics:
     """Counters of one batch render: batches traced and bounces traced in
-    all (a batch stops when its last path ends or at max_depth)."""
+    all (a batch stops when its last path ends or at max_depth; with a mesh,
+    each shard's bounces count)."""
     batches: int = 0
     bounces: int = 0
 
@@ -50,13 +54,21 @@ class Renderer:
         kernel: str = "auto",
         *,
         device,
+        dtype=torch.float32,
+        mesh: Optional[pmesh.Mesh] = None,
     ):
         """kernel: the triangle traversal (ops/intersect.py KERNELS):
         "auto" — the exact BVH8 walk, or the exact threaded walk where the
         BVH8 kernel cannot run the scene; "bvh8"; "threaded"; "wavefront"
         — the cull -> compact -> MT pipeline (approximate when a packet
         overflows a cap; RenderMetrics.wf_overflow_packets counts them).  CUDA kernels
-        for a CUDA device, their plain versions for the CPU."""
+        for a CUDA device, their plain versions for the CPU.  "jnp" — the
+        threaded walk in torch ops, the only walk of dtype=torch.float64
+        ("auto" picks it on the CPU; on CUDA any other choice raises
+        TypeError).  `mesh` shards both schedules' lanes
+        (parallel/mesh.py; the attribute may be set between renders); the
+        pack compiles on `device` and is copied to the mesh's other
+        devices."""
         isect.check_kernel(kernel)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -67,7 +79,24 @@ class Renderer:
         self.seed = seed
         self.batch_size = batch_size
         self.kernel = kernel
-        self.pack, self.static = scompiler.compile_scene(scene, self.device)
+        self.dtype = dtype
+        self.mesh = mesh
+        self.pack, self.static = scompiler.compile_scene(scene, self.device, dtype)
+        isect.resolve_kernel(kernel, self.pack)
+        self._bounces = 0
+
+    def _trace_lanes(self, pack, px, py, sample_id, seed):
+        """Radiance (N, 3) of one sample per lane (the reference's batch_fn);
+        adds the bounces it traced to self._bounces."""
+        camera = self.camera
+        ctx = vrng.Ctx(pixel=py * camera.image_width + px, sample=sample_id,
+                       bounce=0, seed=seed)
+        org, dirn = camera.generate_rays(px, py, sample_id, ctx, self.dtype)
+        stats = {}
+        rad = integrator.trace(pack, self.static, org, dirn, ctx, camera.max_depth,
+                               camera.light_bias, kernel=self.kernel, stats=stats)
+        self._bounces += stats["bounces"]
+        return rad
 
     def render(self, spp: Optional[int] = None, mode: str = "pool",
                metrics: Union[metricsmod.RenderMetrics, BatchMetrics, None] = None
@@ -89,10 +118,14 @@ class Renderer:
         total_spp = camera.actual_spp if spp is None else spp
         n_pixels = w * h
         n_lanes = min(self.batch_size, n_pixels * total_spp)
+        if self.mesh is not None:
+            n_shards = self.mesh.n_shards
+            n_lanes = max(n_shards, n_lanes - n_lanes % n_shards)
 
         accum = poolmod.render_pool(
             self.pack, self.static, camera, n_pixels, total_spp, n_lanes,
             self.device, seed=self.seed, metrics=metrics, kernel=self.kernel,
+            dtype=self.dtype, mesh=self.mesh,
         )
         film = filmmod.Film(w, h)
         film.add_samples(accum.reshape(h, w, 3), total_spp)
@@ -101,14 +134,17 @@ class Renderer:
     def trace_batch(self, px, py, sample_id, stats: Optional[dict] = None) -> torch.Tensor:
         """Radiance (N, 3) of one sample per lane: camera rays for pixels
         (px, py) and sample ids, traced to max_depth (int64 tensors on the
-        renderer's device); `stats` as integrator.trace takes it."""
-        camera = self.camera
-        ctx = vrng.Ctx(pixel=py * camera.image_width + px, sample=sample_id,
-                       bounce=0, seed=self.seed)
-        org, dirn = camera.generate_rays(px, py, sample_id, ctx)
-        return integrator.trace(self.pack, self.static, org, dirn, ctx,
-                                camera.max_depth, camera.light_bias, kernel=self.kernel,
-                                stats=stats)
+        renderer's device), sharded over the mesh if there is one; `stats`,
+        a dict if given, gets "bounces": the bounces traced (summed over
+        the shards)."""
+        self._bounces = 0
+        fn = self._trace_lanes
+        if self.mesh is not None:
+            fn = pmesh.shard_batch_fn(fn, self.mesh)
+        rad = fn(self.pack, px, py, sample_id, self.seed)
+        if stats is not None:
+            stats["bounces"] = self._bounces
+        return rad
 
     def render_batched(self, spp: Optional[int] = None,
                        metrics: Optional[BatchMetrics] = None) -> filmmod.Film:
@@ -116,13 +152,17 @@ class Renderer:
         pixel-major, is traced in batches of `batch_size` lanes (the tail
         batch padded by wrapping, its padded lanes zeroed), and each batch's
         radiance is summed per pixel on the host in float64, in lane order
-        (np.bincount), so the image does not depend on the batch size."""
+        (np.bincount), so the image does not depend on the batch size.  With
+        a mesh a batch that the shard count does not divide grows to the
+        next multiple of it (the extra lanes are padding)."""
         camera = self.camera
         w, h = camera.image_width, camera.image_height
         total_spp = camera.actual_spp if spp is None else spp
         n_pixels = w * h
         total = n_pixels * total_spp
         batch = min(self.batch_size, total)
+        if self.mesh is not None:
+            batch = -(-batch // self.mesh.n_shards) * self.mesh.n_shards
 
         accum = np.zeros((n_pixels, 3), np.float64)
         for start in range(0, total, batch):

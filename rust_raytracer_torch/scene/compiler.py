@@ -22,6 +22,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..ops import texture as tex
 from . import bvh8, bvh_builder, graph
@@ -533,21 +534,29 @@ def _supernodes(bvh_min, bvh_max, bvh_miss, bvh_leaf, cluster, n_cl,
     return sn_lo, sn_hi, sn_start, bounds
 
 
-def _device_dtype(a: np.ndarray) -> np.ndarray:
-    """The dtype a table has on the device: 64-bit numbers become 32-bit,
-    as the reference's `jnp.asarray` does with 64-bit mode off."""
+def _device_dtype(a: np.ndarray, dtype=np.float32) -> np.ndarray:
+    """The dtype a table has on the device: 64-bit integers become 32-bit,
+    as the reference's `jnp.asarray` does, and at the f32 compile dtype
+    64-bit floats become 32-bit too (the reference's 64-bit mode off).  At
+    f64 the float tables keep their dtype: the f32 traversal tables stay
+    f32, the rest are f64."""
     a = np.asarray(a)
-    narrow = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
-              np.dtype(np.uint64): np.uint32}
+    narrow = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32}
+    if np.dtype(dtype) == np.float32:
+        narrow[np.dtype(np.float64)] = np.float32
     return a.astype(narrow[a.dtype]) if a.dtype in narrow else a
 
 
-def compile_numpy(scene: graph.SceneDef):
+def compile_numpy(scene: graph.SceneDef, dtype=np.float32):
     """Compile a host scene graph into numpy tables.
 
     Returns (leaves, tex_data, static): `leaves` maps every ScenePack leaf
     name (scene/pack.LEAF_FIELDS) to a numpy array of its device dtype,
     `tex_data` is the tuple of texture tables, `static` the SceneStatic.
+    `dtype` (np.float32 or np.float64) is the dtype of every float table
+    that the reference builds in the compile dtype; the traversal tables
+    (`bvh_rows`, `tri_geom`, `bvh8_aabb`, `wf_*`) are f32 at any dtype, as
+    the reference's (rust_raytracer_tpu/scene/compiler.py:570-672).
     """
     if not isinstance(scene, graph.SceneDef):
         raise TypeError(
@@ -555,7 +564,9 @@ def compile_numpy(scene: graph.SceneDef):
             f"{type(scene).__module__}.{type(scene).__qualname__}: build scenes with "
             "the port's own scene graph (rust_raytracer_torch.scene.graph, "
             "rust_raytracer_torch.models)")
-    np_dtype = np.dtype(np.float32)
+    np_dtype = np.dtype(dtype)
+    if np_dtype not in (np.float32, np.float64):
+        raise TypeError(f"compile dtype must be float32 or float64, got {np_dtype}")
     c = _Compiler(dtype=np_dtype)
     c.compile_object(scene.world, np.eye(4))
 
@@ -749,15 +760,20 @@ def compile_numpy(scene: graph.SceneDef):
         tex_const=f(np.array([n.value for n in c.tex_nodes], np.float64)),
         background=f(background),
     )
-    leaves = {k: _device_dtype(v) for k, v in leaves.items()}
-    tex_data = tuple(_device_dtype(d) for d in c.tex_data)
+    leaves = {k: _device_dtype(v, np_dtype) for k, v in leaves.items()}
+    tex_data = tuple(_device_dtype(d, np_dtype) for d in c.tex_data)
     static = SceneStatic(
         tex_program=tuple(c.tex_nodes), light_list=tuple(light_list)
     )
     return leaves, tex_data, static
 
 
-def compile_scene(scene: graph.SceneDef, device):
-    """Compile a host scene graph into (ScenePack on `device`, SceneStatic)."""
-    leaves, tex_data, static = compile_numpy(scene)
+def compile_scene(scene: graph.SceneDef, device, dtype=torch.float32):
+    """Compile a host scene graph into (ScenePack on `device`, SceneStatic).
+    `dtype` is torch.float32, or torch.float64 for the validation trace
+    (its pack runs only the "jnp" walk, ops/intersect.py)."""
+    np_dtype = {torch.float32: np.float32, torch.float64: np.float64}.get(dtype)
+    if np_dtype is None:
+        raise TypeError(f"compile dtype must be torch.float32 or torch.float64, got {dtype}")
+    leaves, tex_data, static = compile_numpy(scene, np_dtype)
     return sp.from_numpy(leaves, tex_data, device), static

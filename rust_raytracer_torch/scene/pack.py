@@ -124,6 +124,12 @@ class ScenePack(_PackBase):
     def device(self) -> torch.device:
         return self.tri_v0.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compile dtype (scene/compiler.compile_scene): float32, or
+        float64 for the validation trace."""
+        return self.background.dtype
+
     def float_fields(self) -> Tuple[str, ...]:
         """The DEVICE_FIELDS that hold floats: the scene's parameters."""
         return tuple(f for f in DEVICE_FIELDS if getattr(self, f).is_floating_point())
@@ -212,3 +218,47 @@ def from_numpy(leaves: Dict[str, np.ndarray], tex_data: tuple, device) -> SceneP
         vol_tri_counts=vol_tri_counts(np.asarray(leaves["vol_tri_e1"]),
                                       np.asarray(leaves["vol_tri_e2"])),
     )
+
+
+def empty_leaves(dtype=np.float32) -> Dict[str, np.ndarray]:
+    """The numpy leaves of a scene with zero primitives of every kind (all
+    tables present), with the reference's `empty_pack(dtype)` shapes and
+    dtypes."""
+    f, i32 = np.dtype(dtype), np.int32
+    shapes = dict(
+        sph_center=((0, 3), f), sph_radius=((0,), f), sph_mat=((0,), i32),
+        sph_inv=((0, 3, 3), f), sph_fwd=((0, 3, 3), f),
+        pln_corner=((0, 3), f), pln_uhalf=((0, 3), f), pln_vhalf=((0, 3), f),
+        pln_dual_u=((0, 3), f), pln_dual_v=((0, 3), f), pln_normal=((0, 3), f),
+        pln_area=((0,), f), pln_backface=((0,), bool), pln_mat=((0,), i32),
+        tri_v0=((0, 3), f), tri_e1=((0, 3), f), tri_e2=((0, 3), f),
+        tri_n0=((0, 3), f), tri_n1=((0, 3), f), tri_n2=((0, 3), f),
+        tri_uv0=((0, 2), f), tri_uv1=((0, 2), f), tri_uv2=((0, 2), f),
+        tri_has_uv=((0,), bool), tri_hit_back=((0,), bool), tri_mat=((0,), i32),
+        tri_attr=((0, 32), f),
+        bvh_min=((0, 3), f), bvh_max=((0, 3), f), bvh_hit_link=((0,), i32),
+        bvh_miss_link=((0,), i32), bvh_leaf_start=((0,), i32),
+        bvh_rows=((0, 16), np.float32), tri_geom=((0, 16, 128), np.float32),
+        bvh8_aabb=((0, 8, 128), np.float32), bvh8_child=((0, 8), i32),
+        wf_cl_lo=((0, 3), np.float32), wf_cl_hi=((0, 3), np.float32),
+        wf_sn_lo=((0, 3), np.float32), wf_sn_hi=((0, 3), np.float32),
+        wf_sn_start=((0,), i32), wf_sn_bounds=((0, 6, 128), np.float32),
+        vol_kind=((0,), i32), vol_center=((0, 3), f), vol_radius=((0,), f),
+        vol_axes=((0, 3, 3), f), vol_halfsize=((0, 3), f),
+        vol_neg_inv_density=((0,), f), vol_mat=((0,), i32),
+        vol_tri_v0=((0, 1, 3), f), vol_tri_e1=((0, 1, 3), f), vol_tri_e2=((0, 1, 3), f),
+        sky_tex=((0,), i32), sun_dir=((0, 3), f), sun_tex=((0,), i32),
+        mat_type=((0,), i32), mat_albedo_tex=((0,), i32), mat_rough_tex=((0,), i32),
+        mat_inv_ior=((0,), f), mat_ior=((0,), f), mat_normal_tex=((0,), i32),
+        light_kind=((0,), i32), light_idx=((0,), i32),
+        lgt_sph_center=((0, 3), f), lgt_sph_radius=((0,), f),
+        tex_const=((1, 3), f), background=((3,), f),
+    )
+    return {k: np.zeros(shape, dt) for k, (shape, dt) in shapes.items()}
+
+
+def empty_pack(dtype=torch.float32, device="cpu") -> ScenePack:
+    """A pack with zero primitives of every kind (all tables present): the
+    reference's `empty_pack(dtype)` on `device`."""
+    np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    return from_numpy(empty_leaves(np_dtype), (), device)

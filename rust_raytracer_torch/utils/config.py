@@ -112,3 +112,11 @@ def parse_args(argv: List[str]):
             scene_name = arg
 
     return scene_name, scene_overrides, render
+
+
+def make_camera(scene_config: Dict[str, object], render: RenderConfig):
+    """Build a render.Camera from merged configs (the reference's name for
+    render/camera.camera_from_config)."""
+    from ..render.camera import camera_from_config
+
+    return camera_from_config(scene_config, render)

@@ -53,3 +53,22 @@ def test_generate_rays_match(name):
     assert to.dtype == torch.float32 and to.shape == (w * h * spp, 3)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_make_camera_matches_jax(name):
+    """utils/config.make_camera, the reference's name, builds the camera
+    the reference's make_camera builds from the same configs."""
+    from rust_raytracer_torch.utils import config as tcfg
+
+    overrides, render = CASES[name]
+    jcam = cfg.make_camera(cfg.merge_scene_config(overrides), render)
+    tcam_ = tcfg.make_camera(tcfg.merge_scene_config(overrides),
+                             tcfg.RenderConfig(**vars(render)))
+    assert isinstance(tcam_, tcam.Camera)
+    for a in ("image_width", "image_height", "aspect_ratio", "focal_length", "f_number",
+              "focus_distance", "position", "look_at", "samples_per_pixel", "max_depth",
+              "light_bias", "thread_count", "sqrt_spt", "actual_spp", "aperture_radius"):
+        assert getattr(tcam_, a) == getattr(jcam, a), a
+    for a in ("first_pixel", "pixel_delta_u", "pixel_delta_v"):
+        np.testing.assert_array_equal(getattr(tcam_, a), getattr(jcam, a))

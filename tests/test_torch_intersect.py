@@ -170,13 +170,14 @@ def test_intersect_and_hit_attributes_match(name):
 
 
 def test_unported_kernels_raise():
-    """Every traversal is ported: the port's kernel names are accepted, the
-    reference's "pallas" and "jnp" are unknown names here.  Volumes are
-    ported too: `intersect` runs `cornell_smoke` (two box volumes) and some
-    of its rays stop in a volume."""
-    for kernel in ("auto", "bvh8", "threaded", "wavefront"):
+    """Every traversal is ported: the port's kernel names, and the
+    reference's portable "jnp" walk, are accepted; the reference's "pallas"
+    is an unknown name here.  Volumes are ported too: `intersect` runs
+    `cornell_smoke` (two box volumes) and some of its rays stop in a volume,
+    the same with "jnp" as with "auto"."""
+    for kernel in ("auto", "bvh8", "threaded", "wavefront", "jnp"):
         assert tisect.check_kernel(kernel) is None  # ported: accepted
-    for kernel in ("pallas", "jnp"):
+    for kernel in ("pallas",):
         with pytest.raises(ValueError, match="unknown kernel"):
             tisect.check_kernel(kernel)
     from rust_raytracer_torch import models as tmodels
@@ -191,6 +192,8 @@ def test_unported_kernels_raise():
     dirn = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
     ctx = trng.Ctx(torch.arange(n), torch.zeros(n, dtype=torch.int64), 0, 0)
     hit = tisect.intersect(pack, org, dirn, 1e-3, ctx)
+    for a, b in zip(hit, tisect.intersect(pack, org, dirn, 1e-3, ctx, kernel="jnp")):
+        assert torch.equal(a, b)
     vol = hit.kind == tpack.PRIM_VOLUME
     assert vol.any()
     attr = tisect.hit_attributes(pack, org, dirn, hit)

@@ -209,3 +209,22 @@ def test_film_writers_round_trip(tmp_path):
     head = b"P6\n13 9\n255\n"
     assert ppm.startswith(head)
     np.testing.assert_array_equal(np.frombuffer(ppm[len(head):], np.uint8).reshape(9, 13, 3), img)
+
+
+def test_film_ppm_writers_match_jax(tmp_path):
+    """save_ppm_p3 (the reference's legacy gamma-2.2 ASCII writer) writes
+    the reference's bytes; save_ppm writes the reference's P6 header and its
+    pixels within test_film_to_image_matches_jax's 1 of 255."""
+    hdr = _hdr()
+    jf, tf = jfilm.Film(13, 9), tfilm.Film(13, 9)
+    jf.add_samples(hdr * 4, 4)
+    tf.add_samples(torch.from_numpy(hdr * 4), 4)
+    read = lambda p: open(p, "rb").read()  # noqa: E731
+    assert read(tf.save_ppm_p3(str(tmp_path / "t3.ppm"))) == read(
+        jf.save_ppm_p3(str(tmp_path / "j3.ppm")))
+    got, want = (read(f.save_ppm(str(tmp_path / f"{n}6.ppm"))) for f, n in ((tf, "t"), (jf, "j")))
+    head = b"P6\n13 9\n255\n"
+    assert got.startswith(head) and want.startswith(head) and len(got) == len(want)
+    body = np.frombuffer(got[len(head):], np.uint8).astype(int)
+    assert np.abs(body - np.frombuffer(want[len(head):], np.uint8).astype(int)).max() <= 1
+    np.testing.assert_array_equal(body.reshape(9, 13, 3), tf.to_image())

@@ -65,6 +65,32 @@ def mini_dragon_scene(g):
                       config=dict(builtin._CORNELL_CONFIG))
 
 
+# tests/_grad_fd_main.py's probe: 16x16 pixels, 1 spp, depth 3, seed 7, and
+# the tables whose gradients it checks
+PROBE_DEPTH, PROBE_LANES, PROBE_SEED = 3, 256, 7
+PROBED = ("sph_center", "sph_radius", "pln_corner", "background", "tex_const")
+
+
+def probe_scene(g):
+    """tests/_grad_fd_main.py's scene, built with graph module `g`: a
+    diffuse ball on a diffuse floor lit by an emissive quad and a dim sky."""
+    light = g.Plane((0, 2.0, 0), (0.8, 0, 0), (0, 0, 0.8),
+                    g.Emissive(g.Constant((6.0, 6.0, 6.0))))
+    floor = g.Plane((0, -0.4, 0), (-4, 0, 0), (0, 0, 4),
+                    g.Lambertian(g.Constant((0.6, 0.6, 0.6))))
+    ball = g.Sphere((0, 0, 0), 0.35, g.Lambertian(g.Constant((0.7, 0.2, 0.2))))
+    sky = g.Sky(g.Constant((0.1, 0.1, 0.1)))
+    return g.SceneDef(world=g.Group([ball, floor, light, sky]),
+                      lights=[light, sky], config={})
+
+
+def probe_camera(camera_cls):
+    """tests/_grad_fd_main.py's camera, of class `camera_cls`."""
+    return camera_cls(image_width=16, aspect_ratio=1.0, samples_per_pixel=1,
+                      max_depth=PROBE_DEPTH, position=(0, 0.3, 1.6), look_at=(0, 0, 0),
+                      focal_length=35.0)
+
+
 def _image(h, w, seed):
     return np.random.default_rng(seed).uniform(size=(h, w, 3)).astype(np.float32)
 
@@ -184,6 +210,24 @@ def test_pack_fields_match_reference():
     assert len(tpack.LEAF_FIELDS) == len(want) - 1
 
 
+def test_empty_pack_matches_reference():
+    """empty_pack: every field of the reference's empty_pack(float32) in
+    shape and dtype (the f64 case is in tests/test_torch_f64.py), and the
+    port's pack of it on the CPU with empty kernel tables."""
+    from rust_raytracer_tpu.scene import pack as jpack
+
+    want = jpack.empty_pack()
+    got = tpack.empty_leaves(np.float32)
+    assert set(got) == set(tpack.LEAF_FIELDS)
+    for f in tpack.LEAF_FIELDS:
+        w = np.asarray(getattr(want, f))
+        assert (got[f].shape, got[f].dtype) == (w.shape, w.dtype), f
+    assert want.tex_data == ()
+    p = tpack.empty_pack()
+    assert p.dtype == torch.float32 and p.tex_data == () and p.bvh8_depth == 0
+    assert p.tri_rows.shape == (0, 12) and p.bvh_node_rows.shape == (0, 8)
+
+
 def assert_compilers_equal(jax_scene, port_scene):
     """Both compilers on the same scene, built once in each package: every
     leaf equal in shape, dtype and value, SceneStatic equal."""
@@ -294,9 +338,10 @@ def test_threaded_node_rows(name):
 def test_port_runs_without_jax(tmp_path):
     """Import every module of rust_raytracer_torch with `jax` and the JAX
     package blocked (the walk covers the CLI, the DSL, the importers,
-    metrics and checkpoint), then build the mini scene with the port's own
-    graph, config and models, render a 16x16 frame on the CPU in both
-    modes, and run the CLI on the CPU on cornell_smoke (volumes)."""
+    metrics, checkpoint and parallel.mesh), then build the mini scene with
+    the port's own graph, config and models, render a 16x16 frame on the
+    CPU in both modes and in batch mode on a 2-shard CPU mesh, and run the
+    CLI on the CPU on cornell_smoke (volumes)."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -311,7 +356,8 @@ def test_port_runs_without_jax(tmp_path):
             importlib.import_module(m.name)
             walked.add(m.name[len("rust_raytracer_torch."):])
         want = {{"__main__", "utils.cli", "utils.config", "scene.dsl", "utils.gltf", "utils.fbx",
-                "utils.collada", "utils.model_import", "utils.metrics", "render.checkpoint"}}
+                "utils.collada", "utils.model_import", "utils.metrics", "render.checkpoint",
+                "parallel.mesh"}}
         assert want <= walked, want - walked
         from rust_raytracer_torch import models
         from rust_raytracer_torch.scene import graph
@@ -327,6 +373,10 @@ def test_port_runs_without_jax(tmp_path):
         for mode in ("pool", "batch"):
             img = r.render(mode=mode).hdr()
             assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0
+        from rust_raytracer_torch.parallel import mesh as pmesh
+        rm = Renderer(scene, cam, batch_size=256, device="cpu",
+                      mesh=pmesh.make_mesh(2, device="cpu"))
+        assert np.array_equal(rm.render(mode="batch").hdr(), img)
         from rust_raytracer_torch.utils import cli
         out = {str(tmp_path / "smoke.png")!r}
         assert cli.main(["cornell_smoke", "-w=12", "-s=1", "--max-depth=3", "-o=" + out],
