@@ -71,6 +71,20 @@ beside the live one (lane state equal bit for bit; the file's size, save
 and load times).  The kernels line gives each kernel's launches on these
 sharded paths (`sharded_launches`).
 
+Then the CUDA graphs (render/graphs.py; phase 25): on the card every pool
+render and batch render above replays a captured graph a step (a bounce),
+and the phases that hook a step's Python (the recorded steps, the fog
+render's volume count) or check STEP_LAUNCHES run the eager step.  Phase
+25 steps the main path's BVH8 and wavefront pools eagerly and graphed from
+one start, in turns, 20 steps each (lane state bit-equal, accumulator
+within float order, the graphed steps' kernel launches = steps); renders
+the main path both ways in turns (eager, graphed with its capture,
+graphed, eager): rates, wall ms/step, the graph's nodes a step read from
+libcuda beside STEP_LAUNCHES, capture seconds, peak memory, images
+within float order; splits a steady step's device time both ways; and
+traces one LANES-lane batch through the graphed and the eager bounce
+(per-lane radiance bit-equal) and the batch render both ways.
+
 K1 and K3 test a leaf with the whole warp (rust_raytracer_torch/csrc/
 traverse_common.cuh:warp_leaf_test).  Beside each of
 their times the smoke prints the counts that design answers to, from the
@@ -131,13 +145,15 @@ SLAB_OPS, MT_OPS = 25, 56      # operations of one slab test, one Möller–Trum
 RAY_BYTES, HIT_BYTES = 28, 8   # org, dirn, t_max in; t, slot out
 CLUSTER_BYTES = 128 * 48       # one cluster's triangle rows
 KERNEL_REPS, PLAIN_REPS = 50, 3
-# kernels a steady cornell_dragon pool step launches, as measured on the H100
-# since the wavefront cull and compact were fused: a scene without volumes
+# kernels a steady cornell_dragon pool step launches eagerly, as measured on
+# the H100 since the shading's unit vector is built on the device (a zero
+# fill and a fill, where a host copy stood before): a scene without volumes
 # adds none to them (one volume adds tens of kernels to a step), and the
 # metrics recorder none at all.  The BVH8 step's count is exact; the
-# wavefront step's mean over five steps read 1737.8-1739.0 across runs of
-# one tree, so it is held within STEP_SLACK of its count.
-STEP_LAUNCHES = {"auto": 1667, "wavefront": 1738}
+# wavefront step's mean over five steps read 1738.8-1740.0 across runs, so
+# it is held within STEP_SLACK of its count.  A graphed step replays these
+# and 11 copies of the next state into the graph's buffers.
+STEP_LAUNCHES = {"auto": 1668, "wavefront": 1739}
 STEP_SLACK = {"auto": 0, "wavefront": 2}
 
 
@@ -392,16 +408,18 @@ def pool_step_parity(renderer):
     return max_err
 
 
-def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None):
+def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None, graph=False):
     """Time `steps` steady-state pool steps of `renderer`'s path, then
     profile as many more: wall time, device time, and the share of each
     traversal kernel (`names`: its `__global__` name less `_kernel`,
     matched whole).  The profiler
     slows the host, so device busy time is read against the unprofiled
-    wall time.  Without a `mesh`, raises unless the profiled steps' mean
-    launches a step is within STEP_SLACK[kernel] of STEP_LAUNCHES[kernel];
-    with one, the step is the sharded step.  Returns (launches a step, wall
-    ms a step, device busy ms a step)."""
+    wall time.  The step is eager unless `graph` (then the warm-up steps
+    include its capture, and the kernels a step are those the profiler
+    sees a replay run).  Eager and without a `mesh`, raises unless the
+    profiled steps' mean launches a step is within STEP_SLACK[kernel] of
+    STEP_LAUNCHES[kernel]; with one, the step is the sharded step.  Returns
+    (launches a step, wall ms a step, device busy ms a step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from rust_raytracer_torch.render import pool as poolmod
@@ -411,7 +429,7 @@ def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None):
     state = poolmod.init_state(LANES, n_pixels, renderer.pack.device,
                                n_shards=None if mesh is None else mesh.n_local)
     step = poolmod.make_step(renderer.pack, renderer.static, camera, total, SPP,
-                             renderer.seed, kernel=renderer.kernel, mesh=mesh)
+                             renderer.seed, kernel=renderer.kernel, mesh=mesh, graph=graph)
     for _ in range(warm):
         state = step(renderer.pack, state)
     torch.cuda.synchronize()
@@ -435,6 +453,7 @@ def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None):
     n_launch = sum(e.count for e in kernels) / steps
     shares = ", ".join(f"{nm} {ms:.3f} ms ({ms / dev_ms:.1%})" for nm, ms in own.items())
     tag = renderer.kernel if mesh is None else f"{renderer.kernel}, {mesh.n_shards} shard(s)"
+    tag += ", graphed" if graph else ""
     log(f"pool step split ({tag}): wall {wall_ms:.3f} ms/step (steps "
         f"{warm + 1}-{warm + steps}, profiler off); steps {warm + steps + 1}-"
         f"{warm + 2 * steps} profiled: wall {prof_ms:.3f} ms/step, device busy "
@@ -444,8 +463,8 @@ def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None):
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
             f"x{e.count // steps:<4d} {e.key[:90]}")
-    if mesh is None and (abs(n_launch - STEP_LAUNCHES[renderer.kernel])
-                         > STEP_SLACK[renderer.kernel]):
+    if mesh is None and not graph and (abs(n_launch - STEP_LAUNCHES[renderer.kernel])
+                                       > STEP_SLACK[renderer.kernel]):
         raise AssertionError(f"a {renderer.kernel} pool step launched {n_launch} kernels, not "
                              f"{STEP_LAUNCHES[renderer.kernel]}")
     return n_launch, wall_ms, dev_ms
@@ -507,8 +526,9 @@ def check_image(film, camera):
 # ---------------------------------------------------------------- wavefront
 
 def record_steps(renderer, fn_module, fn_name):
-    """Render through the main path with the traversal inputs (org, dirn,
-    t_max) of every pool step recorded (on the card).  Returns the list."""
+    """Render through the main path's eager step (a graph replay runs no
+    Python) with the traversal inputs (org, dirn, t_max) of every pool step
+    recorded (on the card).  Returns the list."""
     recorded = []
     launch = getattr(fn_module, fn_name)
 
@@ -517,10 +537,12 @@ def record_steps(renderer, fn_module, fn_name):
         return launch(pack, org, dirn, t_min, t_max, **kw)
 
     setattr(fn_module, fn_name, record)
+    renderer.graph = False
     try:
         renderer.render(mode="pool")
     finally:
         setattr(fn_module, fn_name, launch)
+        renderer.graph = True
     return recorded
 
 
@@ -1367,7 +1389,10 @@ def volume_intersect_parity(scene, dev, card):
 def fog_pool_render(scene, camera, dev, card):
     """cornell_dragon with one fog sphere (the port's graph) through the
     pool at the main path's size: K1 launches every step and no plain
-    walk runs, lanes stop in the volume, the image is finite."""
+    walk runs, lanes stop in the volume (counted on the eager step, whose
+    Python runs every step), the image is finite; then the same render
+    through the graphed step (the volumes' spans captured): K1 launches =
+    steps, the image within float order of the eager one."""
     from rust_raytracer_torch.ops import bvh8
     from rust_raytracer_torch.ops import intersect as isect
     from rust_raytracer_torch.render.renderer import Renderer
@@ -1380,7 +1405,7 @@ def fog_pool_render(scene, camera, dev, card):
                    g.Isotropic(g.Constant((1.0, 1.0, 1.0))), 0.01)
     fog_scene = g.SceneDef(world=g.Group(list(scene.world.items) + [fog]),
                            lights=scene.lights, config=dict(scene.config))
-    renderer = Renderer(fog_scene, camera, batch_size=LANES, device=dev)
+    renderer = Renderer(fog_scene, camera, batch_size=LANES, device=dev, graph=False)
     hits, real = [], isect.intersect
 
     def counting(*a, **k):
@@ -1411,6 +1436,21 @@ def fog_pool_render(scene, camera, dev, card):
         f"{camera.image_height}@{SPP}spp depth {DEPTH}, {LANES} lanes: {total / secs:.1f} "
         f"pixel-samples/s ({secs:.3f} s), {metrics.steps} steps, K1 launches {bvh8.launches}, "
         f"plain calls 0, {vol_hits} lane-bounces stopped in the volume ({card})")
+    renderer.graph = True
+    g_metrics = RenderMetrics()
+    torch.cuda.synchronize()
+    bvh8.launches = 0
+    t0 = time.perf_counter()
+    g_hdr = renderer.render(mode="pool", metrics=g_metrics).hdr()
+    torch.cuda.synchronize()
+    g_secs = time.perf_counter() - t0
+    agree, rel = image_agreement(g_hdr, hdr)
+    log(f"fog pool render, graphed: {total / g_secs:.1f} pixel-samples/s ({g_secs:.3f} s with "
+        f"its capture), {g_metrics.steps} steps, K1 launches {bvh8.launches}; image vs the "
+        f"eager render: pixel agreement {agree:.6f}, mean |d|/mean {rel:.3e} ({card})")
+    if not (bvh8.launches == g_metrics.steps == metrics.steps and agree >= 0.999999
+            and rel <= 1e-5):
+        raise AssertionError("the graphed fog render differs from the eager one")
 
 
 def png_size(path):
@@ -1842,6 +1882,211 @@ def sharded_checkpoint(pack, static, camera, dev, card):
     return {"bytes": size, "save_ms": save_s * 1e3, "load_ms": load_s * 1e3}
 
 
+# ---------------------------------------------------------------- CUDA graphs
+
+# CUgraphNodeType (cuda.h): the kinds a captured step holds
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 5: "empty", 6: "event wait",
+              7: "event record", 10: "mem alloc", 11: "mem free"}
+
+
+def graph_nodes(graph):
+    """The nodes of a captured torch.cuda.CUDAGraph (kept with
+    keep_graph=True) by kind, read with libcuda's cuGraphGetNodes and
+    cuGraphNodeGetType."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    kinds = Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise AssertionError("cuGraphNodeGetType failed")
+        kinds[NODE_KINDS.get(kind.value, f"kind {kind.value}")] += 1
+    return kinds
+
+
+def the_capture(step):
+    """The one capture of a graphed step (render/graphs.py:GraphedStep)."""
+    (cap,) = step.captures.values()
+    return cap
+
+
+def lane_state_parity(r, kernel, camera, dev, card, names, steps=20):
+    """Eager and graphed pool steps of renderer `r` from one start state, in
+    turns, `steps` each: every lane field bit-equal, the accumulator within
+    float order (index_add on the card sums in no fixed order), and the
+    graphed steps' launches of each traversal kernel in `names` equal to
+    the steps.  Returns the accumulator's max |d|."""
+    from rust_raytracer_torch.render import graphs
+    from rust_raytracer_torch.render import pool as poolmod
+
+    n_pixels = camera.image_width * camera.image_height
+    args = (r.pack, r.static, camera, n_pixels * SPP, SPP, r.seed)
+    eager = poolmod.make_step(*args, kernel=kernel, graph=False)
+    graphed = poolmod.make_step(*args, kernel=kernel)
+    e = g = poolmod.init_state(LANES, n_pixels, dev)
+    launched = Counter()
+    for _ in range(steps):
+        e = eager(r.pack, e)
+        before = graphs.launch_counts()
+        g = graphed(r.pack, g)
+        launched.update({k: v - before[k] for k, v in graphs.launch_counts().items()})
+    torch.cuda.synchronize()
+    lane = ("org", "dirn", "throughput", "radiance", "pixel", "sample", "bounce", "active",
+            "next_flat", "overflow")
+    differ = [f for f in lane if not torch.equal(getattr(e, f), getattr(g, f))]
+    d_acc = float((e.accum - g.accum).abs().max())
+    scale = float(e.accum.abs().max())
+    launched = {k: v for k, v in launched.items() if v}
+    log(f"graph lane state, {kernel}: {steps} eager and {steps} graphed steps in turns from "
+        f"one start: lane fields not bit-equal {differ or 'none'} (of {len(lane)}), accum "
+        f"max |d| {d_acc:.3e} of {scale:.3e} (float order), graphed launches {launched}, "
+        f"capture {the_capture(graphed).seconds:.2f} s ({card})")
+    if differ or d_acc > 1e-5 * scale or launched != {nm: steps for nm in names}:
+        raise AssertionError(f"graphed {kernel} steps differ from the eager ones")
+    return d_acc
+
+
+def graph_render_pair(r, kernel, camera, dev, card, names):
+    """The main path's full render of renderer `r`, eager and graphed, in
+    turns (eager, graphed with its capture, graphed, eager), each with a
+    fresh step: rates, wall ms/step, peak memory (max_memory_allocated from
+    a reset; the graphed one's includes its capture), steps equal, the
+    traversal kernels' launches equal to the steps on each graphed render,
+    the images within float order of each other (agreement >= 0.999999 at
+    1 spp).  Returns a dict of the numbers."""
+    from rust_raytracer_torch.render import graphs
+    from rust_raytracer_torch.render import pool as poolmod
+    from rust_raytracer_torch.utils.metrics import RenderMetrics
+
+    n_pixels = camera.image_width * camera.image_height
+    total = n_pixels * SPP
+    runs = []
+    steps = {}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        if mode not in steps or mode == "eager":
+            steps[mode] = poolmod.make_step(r.pack, r.static, camera, total, SPP, r.seed,
+                                            kernel=kernel, graph=mode == "graphed")
+        m = RenderMetrics()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = graphs.launch_counts()
+        t0 = time.perf_counter()
+        accum = poolmod.render_pool(r.pack, r.static, camera, n_pixels, SPP, LANES, dev,
+                                    seed=r.seed, metrics=m, kernel=kernel, step=steps[mode])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launched = {k: v - before[k] for k, v in graphs.launch_counts().items()
+                    if v != before[k]}
+        runs.append((mode, secs, m.steps, peak, launched, accum))
+        if launched != {nm: m.steps for nm in names}:
+            raise AssertionError(f"{mode} {kernel} render: launches {launched}, {m.steps} steps")
+    cap = the_capture(steps["graphed"])
+    nodes = graph_nodes(cap.graph)
+    h = camera.image_height
+    imgs = {mode: (a / SPP).reshape(h, W, 3).cpu().numpy() for mode, *_, a in runs}
+    agree, rel = image_agreement(imgs["graphed"], imgs["eager"])
+    e_s = (runs[0][1] + runs[3][1]) / 2
+    g_s = runs[2][1]
+    n_steps = {s for _, _, s, *_ in runs}
+    out = {"eager_rate": total / e_s, "graphed_rate": total / g_s,
+           "eager_ms_step": e_s * 1e3 / runs[0][2], "graphed_ms_step": g_s * 1e3 / runs[2][2],
+           "first_graphed_s": runs[1][1], "capture_s": cap.seconds,
+           "eager_peak": max(runs[0][3], runs[3][3]), "graphed_peak": runs[1][3],
+           "nodes": dict(nodes), "agree": agree, "rel": rel, "steps": runs[0][2]}
+    log(f"graph render, {kernel}: cornell_dragon {W}x{h}@{SPP}spp depth {DEPTH}, {LANES} "
+        f"lanes, eager / graphed / graphed / eager: {', '.join(f'{s:.3f}' for _, s, *_ in runs)} "
+        f"s; eager {out['eager_rate']:.1f} pixel-samples/s ({out['eager_ms_step']:.3f} ms/step, "
+        f"mean of 2), graphed {out['graphed_rate']:.1f} ({out['graphed_ms_step']:.3f} ms/step; "
+        f"the first graphed render {runs[1][1]:.3f} s with its capture, {cap.seconds:.3f} s "
+        f"set-up), {runs[0][2]} steps each; graph nodes a step {dict(nodes)} "
+        f"({sum(nodes.values())} in all) beside STEP_LAUNCHES {STEP_LAUNCHES[kernel]}; peak "
+        f"memory above the inputs: eager {out['eager_peak'] / 2**20:.1f} MiB, graphed "
+        f"{out['graphed_peak'] / 2**20:.1f} MiB (capture included); graphed image vs eager: "
+        f"pixel agreement {agree:.6f}, mean |d|/mean {rel:.3e}; graphed launches "
+        f"{runs[2][4]} ({card})")
+    if len(n_steps) != 1 or not (agree >= 0.999999 and rel <= 1e-5):
+        raise AssertionError(f"graphed {kernel} render differs from the eager one")
+    return out
+
+
+def graph_batch(b_renderer, camera, dev, card):
+    """One LANES-lane batch of the batch render through the graphed bounce
+    and eagerly: per-lane radiance bit-equal, K3 launches equal to the
+    bounces; then the whole batch render both ways, in turns (eager,
+    graphed, graphed, eager), its rate each way and its images."""
+    from rust_raytracer_torch.ops import threaded
+    from rust_raytracer_torch.render.renderer import BatchMetrics
+
+    w = camera.image_width
+    lane = torch.arange(LANES, device=dev) + (camera.image_height // 3) * w
+    px, py, smp = lane % w, lane // w, torch.zeros_like(lane)
+    rad = {}
+    for mode in (False, True):
+        b_renderer.graph = mode
+        stats = {}
+        k3 = threaded.launches
+        rad[mode] = b_renderer.trace_batch(px, py, smp, stats)
+        if threaded.launches - k3 != stats["bounces"]:
+            raise AssertionError(f"batch: K3 launches {threaded.launches - k3}, bounces "
+                                 f"{stats['bounces']}")
+    torch.cuda.synchronize()
+    differ = int((rad[True] != rad[False]).any(dim=1).sum())
+    log(f"graph batch: one {LANES}-lane batch, {stats['bounces']} bounces: {differ} lanes' "
+        f"radiance not bit-equal between the graphed and the eager bounce; K3 launches = "
+        f"bounces both ways ({card})")
+    if differ:
+        raise AssertionError("the graphed batch bounce differs from the eager one")
+    total = camera.image_width * camera.image_height * SPP
+    secs, imgs = {False: [], True: []}, {}
+    for mode in (False, True, True, False):
+        b_renderer.graph = mode
+        m = BatchMetrics()
+        k3 = threaded.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs[mode] = b_renderer.render(mode="batch", metrics=m).hdr()
+        torch.cuda.synchronize()
+        secs[mode].append(time.perf_counter() - t0)
+        if threaded.launches - k3 != m.bounces:
+            raise AssertionError(f"batch render: K3 launches {threaded.launches - k3}, "
+                                 f"bounces {m.bounces}")
+    b_renderer.graph = True
+    n_diff = int((imgs[True] != imgs[False]).any(axis=-1).sum())
+    e_s, g_s = np.mean(secs[False]), secs[True][1]
+    log(f"graph batch render: cornell_dragon {W}x{camera.image_height}@{SPP}spp depth {DEPTH}, "
+        f"batches of {LANES}: eager {total / e_s:.1f} pixel-samples/s ({e_s:.3f} s, mean of 2), "
+        f"graphed {total / g_s:.1f} ({g_s:.3f} s; the first graphed render "
+        f"{secs[True][0]:.3f} s), {m.bounces} bounces, K3 launches = bounces; {n_diff} pixels "
+        f"not bit-equal ({card})")
+    if n_diff:
+        raise AssertionError("the graphed batch render differs from the eager one")
+    return {"eager_rate": total / e_s, "graphed_rate": total / g_s}
+
+
+def graph_phase(renderer, wf_renderer, b_renderer, camera, dev, card):
+    """Phase 25: the pool step and the batch bounce as CUDA graphs
+    (render/graphs.py) against the eager ones on the card.  The eager
+    step's device split is phases 7 and 12's."""
+    out = {}
+    for kernel, r, names in (("auto", renderer, ("bvh8_traverse",)),
+                             ("wavefront", wf_renderer, ("wf_cull_compact", "wf_mt"))):
+        lane_state_parity(r, kernel, camera, dev, card, names)
+        out[kernel] = graph_render_pair(r, kernel, camera, dev, card, names)
+        out[kernel]["split"] = step_split(r, camera, card, names, graph=True)
+    out["batch"] = graph_batch(b_renderer, camera, dev, card)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2009,8 +2254,8 @@ def main():
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     film.save(os.path.join(HERE, "build", "chip_smoke_cornell_dragon.png"))
     total = W * h * SPP
-    log(f"main path: cornell_dragon {W}x{h}@{SPP}spp depth {DEPTH}, {LANES} lanes: "
-        f"{total / render_s:.1f} pixel-samples/s ({render_s:.3f} s), "
+    log(f"main path: cornell_dragon {W}x{h}@{SPP}spp depth {DEPTH}, {LANES} lanes, graphed "
+        f"step (its capture included): {total / render_s:.1f} pixel-samples/s ({render_s:.3f} s), "
         f"{metrics.steps} steps, mean occupancy {occupancy(metrics):.4f}, "
         f"kernel launches {launches} ({card})")
 
@@ -2246,6 +2491,10 @@ def main():
 
     # ---- 24. the sharded checkpoint on the card ----
     sharded_checkpoint(renderer.pack, renderer.static, camera, dev, card)
+
+    # ---- 25. the pool step and the batch bounce as CUDA graphs against
+    # the eager ones ----
+    graph_phase(renderer, wf_renderer, b_renderer, camera, dev, card)
 
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")

@@ -48,9 +48,20 @@ def normalize(a, eps: float = 0.0):
     return a / n[..., None]
 
 
+def const3(values, dtype, device):
+    """A (3,) tensor of three Python floats, written on `device` by a zero
+    fill and one fill a nonzero entry: no copy from host memory, which a
+    stream capturing a CUDA graph refuses (render/graphs.py)."""
+    out = torch.zeros((3,), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        if v:
+            out[i].fill_(v)
+    return out
+
+
 def lerp(a, b, t):
     if not isinstance(t, torch.Tensor):
-        t = torch.as_tensor(t, dtype=a.dtype, device=a.device)
+        t = torch.full((), t, dtype=a.dtype, device=a.device)
     if t.ndim < a.ndim:
         t = t[..., None]
     return a * (1.0 - t) + b * t
@@ -65,7 +76,7 @@ def refract(unit_v, n, ior_ratio):
     """Snell refraction; assumes `unit_v` normalized (vec4.rs:140-147)."""
     cos_theta = torch.clamp(dot(-unit_v, n), max=1.0)
     if not isinstance(ior_ratio, torch.Tensor):
-        ior_ratio = torch.as_tensor(ior_ratio, dtype=unit_v.dtype, device=unit_v.device)
+        ior_ratio = torch.full((), ior_ratio, dtype=unit_v.dtype, device=unit_v.device)
     r_perp = (unit_v + n * cos_theta[..., None]) * ior_ratio[..., None]
     r_par = n * (-safe_sqrt(torch.abs(1.0 - length_squared(r_perp))))[..., None]
     return r_perp + r_par

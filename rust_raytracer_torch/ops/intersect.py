@@ -486,7 +486,7 @@ def hit_attributes(pack, org, dirn, hit: Hit) -> HitAttributes:
 
     normal = torch.zeros((n, 3), dtype=dtype, device=dev)
     tangent = torch.zeros((n, 3), dtype=dtype, device=dev)
-    tangent[:, 0] = 1.0
+    tangent[:, 0].fill_(1.0)
     bitangent = tangent
     uv = torch.zeros((n, 2), dtype=dtype, device=dev)
     mat = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -567,7 +567,7 @@ def hit_attributes(pack, org, dirn, hit: Hit) -> HitAttributes:
     if n_vol:
         # volume.rs:56-66: an arbitrary normal, which isotropic ignores
         is_v = hit.kind == sp.PRIM_VOLUME
-        x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev)
+        x_axis = vmath.const3((1.0, 0.0, 0.0), dtype, dev)
         normal = torch.where(is_v[:, None], x_axis, normal)
         mat = torch.where(is_v, pack.vol_mat[_clip(prim, n_vol)], mat)
 

@@ -103,8 +103,7 @@ def lights_sample(pack, light_list: Sequence[Tuple[int, int]], origin, rng_ctx):
     n = origin.shape[0]
     n_lights = len(light_list)
     if n_lights == 0:
-        return torch.tensor([1.0, 0.0, 0.0], dtype=origin.dtype,
-                            device=origin.device).expand(n, 3)
+        return vmath.const3((1.0, 0.0, 0.0), origin.dtype, origin.device).expand(n, 3)
     pick_u = rng_ctx.uniform(rng.Streams.LIGHT_PICK)
     pick = torch.clamp((pick_u * n_lights).to(torch.int32), max=n_lights - 1)
     out = torch.zeros((n, 3), dtype=origin.dtype, device=origin.device)

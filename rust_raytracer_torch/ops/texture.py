@@ -15,6 +15,8 @@ from typing import Tuple
 
 import torch
 
+from ..core import math as vmath
+
 # Node type ids (same values as the reference package)
 CONSTANT = 0
 CHECKER = 1          # UV-space checkerboard (texture/checkerboard.rs:34-44)
@@ -117,7 +119,7 @@ def eval_program(program, tex_data, uv, pos, tex_const=None):
             if tex_const is not None:
                 val = tex_const[i].to(dtype).expand(n, 3)
             else:
-                val = torch.tensor(node.value, dtype=dtype, device=device).expand(n, 3)
+                val = vmath.const3(node.value, dtype, device).expand(n, 3)
         elif node.kind == CHECKER:
             # rust `as u32`: truncate toward 0, saturate negatives to 0
             iu = torch.clamp(uv[..., 0] * 2.0 / node.scale, 0.0, 2.0**31).to(torch.int64)

@@ -12,19 +12,23 @@ so reordering changes no sample.
 `trace(differentiable=True)` is the reverse-mode form: every bounce runs (no
 early exit), the traversal is detached (ops/intersect.py runs it under
 torch.no_grad()), and `remat` picks what the backward pass recomputes.
+`trace(differentiable=False)` on the card replays each bounce as a CUDA
+graph (render/graphs.py), the counterpart of the reference's jitted loop.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils import checkpoint as ckpt
 
+from ..core import math as vmath
 from ..core import rng as vrng
 from ..ops import intersect as isect
 from ..ops import shade as shd
 from ..ops import texture as tex
 from ..utils import metrics as metricsmod
+from . import graphs
 
 REMAT_MODES = ("none", "hits", "full")
 
@@ -86,7 +90,7 @@ def shade_hits(pack, static, org, dirn, hit, ctx, light_bias):
 
     Returns (emission, weight, new_dir, ended, pos)."""
     attr = isect.hit_attributes(pack, org, dirn, hit)
-    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=org.dtype, device=org.device)
+    unit_z = vmath.const3((0.0, 0.0, 1.0), org.dtype, org.device)
     attr = attr._replace(normal=torch.where(attr.valid[:, None], attr.normal, unit_z))
     tex_values = tex.eval_program(static.tex_program, pack.tex_data, attr.uv,
                                   attr.pos, tex_const=pack.tex_const)
@@ -113,9 +117,63 @@ def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
     return (*shade_hits(pack, static, org, dirn, hit, ctx, light_bias), stats)
 
 
+class BounceState(NamedTuple):
+    """The lanes of a batch between two bounces of `trace`: their state,
+    their index in the caller's order (`src`), their RNG keys, and the
+    bounce about to be traced (an int, or a 0-d int64 tensor in a graph)."""
+    org: torch.Tensor
+    dirn: torch.Tensor
+    throughput: torch.Tensor
+    radiance: torch.Tensor
+    alive: torch.Tensor
+    src: torch.Tensor
+    pixel: torch.Tensor
+    sample: torch.Tensor
+    depth: object
+
+
+def _sort_lanes(s: BounceState) -> BounceState:
+    """The lanes in the stable order of `_compaction_key` (dead last)."""
+    perm = torch.sort(_compaction_key(s.org, s.dirn, s.alive), stable=True).indices
+    return BounceState(*(x[perm] for x in s[:-1]), depth=s.depth)
+
+
+def _shade_bounce(pack, static, light_bias, org, dirn, throughput, radiance, alive, hit, ctx):
+    """Shade a bounce's hits and advance the lane state (reference
+    integrator.py:197-208): add the emission, scale the throughput, end
+    paths, keep dead lanes numerically inert."""
+    emission, weight, next_dir, ended, pos = shade_hits(pack, static, org, dirn, hit,
+                                                        ctx, light_bias)
+    radiance = radiance + throughput * emission * alive[:, None]
+    throughput = throughput * torch.where(alive[:, None], weight, 0.0)
+    alive = alive & ~ended
+    new_org = torch.where(alive[:, None], pos, org)
+    new_dir = torch.where(alive[:, None], next_dir, dirn)
+    return new_org, new_dir, throughput, radiance, alive
+
+
+def bounce_step(static, light_bias: float, seed, compact: bool, kernel: str):
+    """`step(pack, s: BounceState) -> BounceState`: one bounce of the
+    non-differentiable trace (the compaction sort, the closest hit, the
+    shading), a pure function of the pack and the lanes, so that
+    graphs.GraphedStep can replay it."""
+
+    def step(pack, s: BounceState) -> BounceState:
+        if compact:
+            s = _sort_lanes(s)
+        ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=s.depth, seed=seed)
+        hit = isect.intersect(pack, s.org, s.dirn, T_MIN, ctx, alive=s.alive, kernel=kernel)
+        lanes = _shade_bounce(pack, static, light_bias, *s[:5], hit, ctx)
+        return BounceState(*lanes, src=s.src, pixel=s.pixel, sample=s.sample,
+                           depth=s.depth + 1)
+
+    return step
+
+
 def trace(pack, static, org, dirn, rng_ctx, max_depth: int, light_bias: float,
           compact: bool = True, differentiable: bool = False,
-          kernel: str = "auto", remat: str = "hits", stats: Optional[dict] = None):
+          kernel: str = "auto", remat: str = "hits", stats: Optional[dict] = None,
+          graph_cache: Optional[dict] = None):
     """Trace a batch of rays to the end of their paths; returns the (N, 3)
     radiance in the caller's lane order (reference integrator.py:143-261).
 
@@ -127,6 +185,12 @@ def trace(pack, static, org, dirn, rng_ctx, max_depth: int, light_bias: float,
 
     differentiable=False: a loop that stops when max_depth bounces ran or
     no lane is alive (one host read a bounce), under torch.no_grad().
+    With a `graph_cache` (a dict the caller owns, as a Renderer does) and
+    on the card (where graphs.applies), each bounce is one replay of a CUDA
+    graph of `bounce_step`, its bounce index a 0-d device tensor that the
+    graph advances; the graph stays in the cache for later calls with the
+    same pack, static tables, lane count, kernel, light_bias, seed and
+    compact.  Without one the bounces run eagerly.
     differentiable=True: all max_depth bounces, differentiable in the
     pack's float tables (ScenePack.with_grad); `remat` trades backward
     recompute for saved activations, with the same forward values and the
@@ -144,74 +208,80 @@ def trace(pack, static, org, dirn, rng_ctx, max_depth: int, light_bias: float,
     """
     if remat not in REMAT_MODES:
         raise ValueError(f"unknown remat {remat!r}; choose from {REMAT_MODES}")
-    if not differentiable:
-        with torch.no_grad():
-            return _trace(pack, static, org, dirn, rng_ctx, max_depth, light_bias,
-                          compact, False, kernel, remat, stats)
-    return _trace(pack, static, org, dirn, rng_ctx, max_depth, light_bias, compact,
-                  True, kernel, remat, stats)
-
-
-def _trace(pack, static, org, dirn, rng_ctx, max_depth, light_bias, compact,
-           differentiable, kernel, remat, stats):
     n = org.shape[0]
     dev = org.device
-    throughput = torch.ones((n, 3), dtype=org.dtype, device=dev)
-    radiance = torch.zeros((n, 3), dtype=org.dtype, device=dev)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    pixel = vrng.as_u32(rng_ctx.pixel)
-    sample = vrng.as_u32(rng_ctx.sample)
-    src = torch.arange(n, device=dev)
+    s = BounceState(
+        org=org, dirn=dirn,
+        throughput=torch.ones((n, 3), dtype=org.dtype, device=dev),
+        radiance=torch.zeros((n, 3), dtype=org.dtype, device=dev),
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        src=torch.arange(n, device=dev),
+        pixel=vrng.as_u32(rng_ctx.pixel), sample=vrng.as_u32(rng_ctx.sample), depth=0)
+    if differentiable:
+        s, bounces = _trace_differentiable(pack, static, s, rng_ctx.seed, max_depth,
+                                           light_bias, compact, kernel, remat)
+    else:
+        with torch.no_grad():
+            s, bounces = _trace_bounces(pack, static, s, rng_ctx.seed, max_depth, light_bias,
+                                        compact, kernel, graph_cache)
+    if stats is not None:
+        stats["bounces"] = bounces
+    if compact:
+        # scatter back to the caller's lane order
+        return torch.zeros_like(s.radiance).index_copy(0, s.src, s.radiance)
+    return s.radiance
 
-    def shade_bounce(org, dirn, throughput, radiance, alive, hit, ctx):
-        """Shade a bounce's hits and advance the lane state (reference
-        integrator.py:197-208): add the emission, scale the throughput, end
-        paths, keep dead lanes numerically inert."""
-        emission, weight, next_dir, ended, pos = shade_hits(pack, static, org, dirn, hit,
-                                                            ctx, light_bias)
-        radiance = radiance + throughput * emission * alive[:, None]
-        throughput = throughput * torch.where(alive[:, None], weight, 0.0)
-        alive = alive & ~ended
-        new_org = torch.where(alive[:, None], pos, org)
-        new_dir = torch.where(alive[:, None], next_dir, dirn)
-        return new_org, new_dir, throughput, radiance, alive
+
+def _check_nans(depth, s: BounceState):
+    if metricsmod.nan_checks():
+        metricsmod.check_nans(f"trace bounce {depth}", org=s.org, dirn=s.dirn,
+                              throughput=s.throughput, radiance=s.radiance)
+
+
+def _trace_bounces(pack, static, s, seed, max_depth, light_bias, compact, kernel,
+                   graph_cache):
+    step = fn = bounce_step(static, light_bias, seed, compact, kernel)
+    if graph_cache is not None and graphs.applies(s.org.device, kernel, pack):
+        step = graphs.cached(graph_cache, (static,),
+                             ("bounce", kernel, float(light_bias), seed, compact),
+                             lambda: graphs.GraphedStep(fn))
+        s = s._replace(depth=torch.zeros((), dtype=torch.int64, device=s.org.device))
+    bounces = 0
+    for depth in range(max_depth):
+        if not bool(s.alive.any()):
+            break
+        bounces += 1
+        s = step(pack, s)
+        _check_nans(depth, s)
+    return s, bounces
+
+
+def _trace_differentiable(pack, static, s, seed, max_depth, light_bias, compact, kernel,
+                          remat):
+    def shade_bounce(*args):
+        return _shade_bounce(pack, static, light_bias, *args)
 
     def whole_bounce(org, dirn, throughput, radiance, alive, ctx):
         hit = isect.intersect(pack, org, dirn, T_MIN, ctx, alive=alive, kernel=kernel)
         return shade_bounce(org, dirn, throughput, radiance, alive, hit, ctx)
 
-    bounces = 0
     for depth in range(max_depth):
-        if not differentiable and not bool(alive.any()):
-            break
-        bounces += 1
         if compact:
-            perm = torch.sort(_compaction_key(org, dirn, alive), stable=True).indices
-            org, dirn = org[perm], dirn[perm]
-            throughput, radiance = throughput[perm], radiance[perm]
-            alive, src = alive[perm], src[perm]
-            pixel, sample = pixel[perm], sample[perm]
-        ctx = vrng.Ctx(pixel=pixel, sample=sample, bounce=depth, seed=rng_ctx.seed)
-        state = (org, dirn, throughput, radiance, alive)
-        if differentiable and remat == "full":
+            s = _sort_lanes(s)
+        ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=depth, seed=seed)
+        state = tuple(s[:5])
+        if remat == "full":
             # the counter-based RNG draws no torch random numbers: nothing
             # to save for the recompute
             out = ckpt.checkpoint(whole_bounce, *state, ctx, use_reentrant=False,
                                   preserve_rng_state=False)
         else:
-            hit = isect.intersect(pack, org, dirn, T_MIN, ctx, alive=alive, kernel=kernel)
-            if differentiable and remat == "hits":
+            hit = isect.intersect(pack, s.org, s.dirn, T_MIN, ctx, alive=s.alive, kernel=kernel)
+            if remat == "hits":
                 out = ckpt.checkpoint(shade_bounce, *state, hit, ctx, use_reentrant=False,
                                       preserve_rng_state=False)
             else:
                 out = shade_bounce(*state, hit, ctx)
-        org, dirn, throughput, radiance, alive = out
-        if metricsmod.nan_checks():
-            metricsmod.check_nans(f"trace bounce {depth}", org=org, dirn=dirn,
-                                  throughput=throughput, radiance=radiance)
-    if stats is not None:
-        stats["bounces"] = bounces
-    if compact:
-        # scatter back to the caller's lane order
-        radiance = torch.zeros_like(radiance).index_copy(0, src, radiance)
-    return radiance
+        s = BounceState(*out, src=s.src, pixel=s.pixel, sample=s.sample, depth=depth + 1)
+        _check_nans(depth, s)
+    return s, max_depth

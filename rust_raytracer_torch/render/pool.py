@@ -13,7 +13,9 @@ Step order, as the reference: shade the vertex, compaction-sort the lanes
 refill dead lanes pixel-major from the job counter.  The step is plain
 PyTorch; the triangle traversal inside it is the chosen traversal's CUDA
 kernels on the card (`kernel`: the BVH8 walk or the wavefront pipeline,
-whose cap-overflow count the state sums on the device).
+whose cap-overflow count the state sums on the device).  On the card the
+step replays a CUDA graph of its body (render/graphs.py), the reference's
+jitted step with its state donated; on the CPU it runs eagerly.
 
 With a `mesh` (parallel/mesh.py) the lane axis is sharded as the
 reference's shard_map shards it: the lanes split evenly, and shard s owns a
@@ -36,7 +38,7 @@ import torch
 from ..core import rng as vrng
 from ..parallel import mesh as pmesh
 from ..utils import metrics as metricsmod
-from . import integrator
+from . import graphs, integrator
 
 
 class PoolState(NamedTuple):
@@ -82,22 +84,33 @@ def _shard_quota(shard: int, n_shards: int, total: int):
 
 
 def make_step(pack, static, camera, total: int, spp: int, seed,
-              kernel: str = "auto", mesh: Optional[pmesh.Mesh] = None):
+              kernel: str = "auto", mesh: Optional[pmesh.Mesh] = None,
+              graph: bool = True):
     """Build the pool step `step(pack, state) -> state`.  `total` =
     n_pixels * spp lane-jobs; flat job ids are pixel-major (pixel =
     flat // spp) so consecutive refills share pixels.  `kernel` is the
     triangle traversal (ops/intersect.py KERNELS).
 
+    On a CUDA device (where graphs.applies) the step is a
+    graphs.GraphedStep: captured at its first call, then one graph replay
+    a step.  graph=False keeps it eager there too, as on the CPU: the
+    reference the graphed step is held against.
+
     With `mesh`, the step runs this process's shards: the state's lanes
     split evenly over them in order, shard i (global shard mesh.first + i)
     steps its lanes on its device with accum[i], next_flat[i] and
-    overflow[i], issuing from its own job-grid slice.  A state without the
-    shard axis is taken as one shard."""
+    overflow[i], issuing from its own job-grid slice; each shard's step is
+    graphed on its device, and the slicing and joining around them run
+    eagerly.  A state without the shard axis is taken as one shard."""
     total = int(total)
+
+    def local(dev, job_base, quota):
+        fn = _local_step(static, camera, spp, seed, kernel, job_base, quota)
+        return graphs.GraphedStep(fn) if graph and graphs.applies(dev, kernel, pack) else fn
+
     if mesh is None:
-        return _local_step(static, camera, spp, seed, kernel, 0, total)
-    shards = [(dev, _local_step(static, camera, spp, seed, kernel,
-                                *_shard_quota(mesh.first + i, mesh.n_shards, total)))
+        return local(pack.device, 0, total)
+    shards = [(dev, local(dev, *_shard_quota(mesh.first + i, mesh.n_shards, total)))
               for i, dev in enumerate(mesh.devices)]
     replica = pmesh.replicas(pack)
 
@@ -244,7 +257,7 @@ def poll_loop(pack, step, state: PoolState, total: int, max_steps: int,
 def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
                 device, seed=0, metrics: Optional[metricsmod.RenderMetrics] = None,
                 kernel: str = "auto", dtype=torch.float32,
-                mesh: Optional[pmesh.Mesh] = None):
+                mesh: Optional[pmesh.Mesh] = None, step: Optional[Callable] = None):
     """Render n_pixels * spp samples through a pool of n_lanes on `device`.
 
     Returns the (n_pixels, 3) radiance sum (divide by spp for the mean).
@@ -253,7 +266,9 @@ def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     packets out of all 8-lane packets traced, as the reference's pool
     does.  With `mesh`, n_lanes (a multiple of the shard count) is the
     global pool, of which this process holds its shards' share; the result
-    is the sum of every shard's plane, the same in every process.
+    is the sum of every shard's plane, the same in every process.  `step`,
+    if given, is the make_step of these arguments, built before (a
+    Renderer keeps its step, and with it the graphs it captured).
     """
     total = n_pixels * spp
     n_shards = 1 if mesh is None else mesh.n_shards
@@ -262,7 +277,8 @@ def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     local_lanes = n_lanes if mesh is None else n_lanes // n_shards * mesh.n_local
     state = init_state(local_lanes, n_pixels, device, dtype,
                        n_shards=None if mesh is None else mesh.n_local)
-    step = make_step(pack, static, camera, total, spp, seed, kernel=kernel, mesh=mesh)
+    if step is None:
+        step = make_step(pack, static, camera, total, spp, seed, kernel=kernel, mesh=mesh)
 
     def on_poll(state, done_steps, issued, n_active):
         if metrics is not None:

@@ -9,6 +9,9 @@ fixed-size batches through `integrator.trace`.  Both return a Film.
 Because the RNG is keyed by (pixel, sample, bounce), the two schedules
 trace the same paths; they differ only in the order of each pixel's sum.
 With a `mesh` (parallel/mesh.py) both schedules shard their lanes over it.
+On the card the pool step and the batch bounce replay CUDA graphs
+(render/graphs.py); the Renderer keeps them, so a later render with the
+same camera, spp, seed, kernel and mesh replays what the first captured.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from ..scene import graph as sgraph
 from ..utils import metrics as metricsmod
 from . import camera as cam
 from . import film as filmmod
+from . import graphs
 from . import integrator
 from . import pool as poolmod
 
@@ -56,6 +60,7 @@ class Renderer:
         device,
         dtype=torch.float32,
         mesh: Optional[pmesh.Mesh] = None,
+        graph: bool = True,
     ):
         """kernel: the triangle traversal (ops/intersect.py KERNELS):
         "auto" — the exact BVH8 walk, or the exact threaded walk where the
@@ -68,7 +73,10 @@ class Renderer:
         TypeError).  `mesh` shards both schedules' lanes
         (parallel/mesh.py; the attribute may be set between renders); the
         pack compiles on `device` and is copied to the mesh's other
-        devices."""
+        devices.  `graph`: on the card, the pool step and the batch bounce
+        replay CUDA graphs (render/graphs.py); False runs them eagerly, the
+        reference the graphs are held against (the attribute may be set
+        between renders).  The CPU and the "jnp" walk always run eagerly."""
         isect.check_kernel(kernel)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -81,9 +89,11 @@ class Renderer:
         self.kernel = kernel
         self.dtype = dtype
         self.mesh = mesh
+        self.graph = graph
         self.pack, self.static = scompiler.compile_scene(scene, self.device, dtype)
         isect.resolve_kernel(kernel, self.pack)
         self._bounces = 0
+        self._graphs = {}   # the pool steps and batch bounces built, with their graphs
 
     def _trace_lanes(self, pack, px, py, sample_id, seed):
         """Radiance (N, 3) of one sample per lane (the reference's batch_fn);
@@ -94,7 +104,8 @@ class Renderer:
         org, dirn = camera.generate_rays(px, py, sample_id, ctx, self.dtype)
         stats = {}
         rad = integrator.trace(pack, self.static, org, dirn, ctx, camera.max_depth,
-                               camera.light_bias, kernel=self.kernel, stats=stats)
+                               camera.light_bias, kernel=self.kernel, stats=stats,
+                               graph_cache=self._graphs if self.graph else None)
         self._bounces += stats["bounces"]
         return rad
 
@@ -122,10 +133,17 @@ class Renderer:
             n_shards = self.mesh.n_shards
             n_lanes = max(n_shards, n_lanes - n_lanes % n_shards)
 
+        total = n_pixels * total_spp
+        step = graphs.cached(
+            self._graphs, (self.pack, self.static, camera, self.mesh),
+            ("pool", total, total_spp, self.seed, self.kernel, self.graph),
+            lambda: poolmod.make_step(self.pack, self.static, camera, total, total_spp,
+                                      self.seed, kernel=self.kernel, mesh=self.mesh,
+                                      graph=self.graph))
         accum = poolmod.render_pool(
             self.pack, self.static, camera, n_pixels, total_spp, n_lanes,
             self.device, seed=self.seed, metrics=metrics, kernel=self.kernel,
-            dtype=self.dtype, mesh=self.mesh,
+            dtype=self.dtype, mesh=self.mesh, step=step,
         )
         film = filmmod.Film(w, h)
         film.add_samples(accum.reshape(h, w, 3), total_spp)
