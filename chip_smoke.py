@@ -37,9 +37,11 @@ bounce and capped/dead rays, its time against both with the counts its
 bound needs; the batch render (`render(mode="batch")`) of cornell_dragon at
 full width through it, its launches and its image against the BVH8 pool
 image; the fwd+bwd step (the differentiable trace at 2^15 lanes, depth 20,
-gradients of every float scene table) with remat "none" and "hits", its
-rate and peak memory, its gradients against the BVH8 walk's; and a small
-gradient on the card against the same on the CPU.
+gradients of every float scene table) with remat "none" and "hits", as one
+CUDA graph replay a step (render/graphs.py:GraphedGrad): its rate, graph
+nodes, capture seconds, peak and held memory and device split, its
+gradients against the BVH8 walk's; and a small gradient on the card
+against the same on the CPU.
 
 Then volumes, the CLI and checkpoint/resume: cornell_smoke (two box
 volumes) at 64x64 on the card against the CPU; 2^18 random rays through `intersect` and
@@ -65,7 +67,8 @@ pool with make_mesh(1) and with two shards on the one card (K1 launches =
 shards x steps, every job issued, the image against the unsharded pool's,
 the rates side by side), the wavefront pool with make_mesh(1) (its overflow
 equal to the unsharded render's), the batch render through K3 with 1 and 2
-shards, and train_step_fn through K3 with 1 and 2 shards (equal after
+shards, and train_step_fn through K3 with 1 and 2 shards, eager and
+graphed (one GraphedGrad replay a shard a step; equal after
 normalisation); and a 2-shard pool state saved, loaded and stepped on
 beside the live one (lane state equal bit for bit; the file's size, save
 and load times).  The kernels line gives each kernel's launches on these
@@ -83,7 +86,15 @@ graphed, eager): rates, wall ms/step, the graph's nodes a step read from
 libcuda beside STEP_LAUNCHES, capture seconds, peak memory, images
 within float order; splits a steady step's device time both ways; and
 traces one LANES-lane batch through the graphed and the eager bounce
-(per-lane radiance bit-equal) and the batch render both ways.
+(per-lane radiance bit-equal) and the batch render both ways.  Phase 26
+runs the fwd+bwd step eagerly and graphed in turns at seeds 1-3 for remat
+"none", "hits" and "full" through K3 and K1 (loss bit-equal, gradients
+within the eager-vs-eager gap and 1e-5, one capture for the three seeds,
+launches = replays x 20, x 40 under "full"), with its wall and device busy
+ms, nodes and memory.  Phase 27 renders (pool and batch) at k = 1, 2, 4
+seeds with the Renderer's graph cache as it stood before its bound and as
+it is, for "auto" and "wavefront", and prints the device memory after
+each k: the bounded cache's must not grow.
 
 K1 and K3 test a leaf with the whole warp (rust_raytracer_torch/csrc/
 traverse_common.cuh:warp_leaf_test).  Beside each of
@@ -475,7 +486,8 @@ def device_split(tag, fn, card, names, absent=()):
     device time and launches of each traversal kernel (`names`: its
     `__global__` name less `_kernel`, matched whole) over the whole call;
     raises if one of `names` did not run or one of `absent` did.  Returns
-    {name: (ms, launches)}."""
+    {name: (ms, launches)}, and under "busy" (device busy ms, profiled wall
+    ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -500,6 +512,7 @@ def device_split(tag, fn, card, names, absent=()):
         f"{sum(e.count for e in kernels)} kernels; " + "; ".join(
             f"{nm} {ms:.1f} ms in {n} launches ({ms / max(dev_ms, 1e-9):.1%} of device time)"
             for nm, (ms, n) in own.items()) + f" ({card})")
+    own["busy"] = (dev_ms, wall_ms)
     return own
 
 
@@ -1207,28 +1220,46 @@ def threaded_times(pack, cases, card):
     return out
 
 
-def grad_step(pack, static, camera, remat, kernel, seed, n_lanes=GRAD_LANES):
-    """bench.py's fwd+bwd step (bench_backward): one sample per lane,
+def grad_steps(static, camera, remat, kernel):
+    """bench.py's fwd+bwd step (bench_backward) as (eager, graphed), each
+    `step(pack, seed) -> (loss, {field: gradient})`: one sample per lane,
     pixels laid out as bench.py:62-67, the differentiable trace to DEPTH
     without compaction, loss mean(rad ** 2), gradients of every float
-    table of the pack (zeros where a table takes no part)."""
+    table of the pack (zeros where a table takes no part); the seed a 0-d
+    int64 tensor on the card.  `graphed` replays one graphs.GraphedGrad
+    (`graphed.grad`; `graphed.captures` lists the device of each capture it
+    made); `eager` runs graphs.value_and_grad on pack.with_grad()."""
     from rust_raytracer_torch.core import rng as vrng
-    from rust_raytracer_torch.render import integrator
+    from rust_raytracer_torch.render import graphs, integrator
 
-    dev = pack.device
-    ar = torch.arange(n_lanes, device=dev)
-    px = ar % camera.image_width
-    py = (ar // camera.image_width) % camera.image_height
-    smp = torch.zeros_like(ar)
-    ctx = vrng.Ctx(pixel=py * camera.image_width + px, sample=smp, bounce=0, seed=seed)
-    org, dirn = camera.generate_rays(px, py, smp, ctx)
-    rad = integrator.trace(pack, static, org, dirn, ctx, DEPTH, camera.light_bias,
-                           compact=False, differentiable=True, kernel=kernel, remat=remat)
-    loss = (rad ** 2).mean()
-    fields = pack.float_fields()
-    grads = torch.autograd.grad(loss, [getattr(pack, f) for f in fields], allow_unused=True)
-    return {f: torch.zeros_like(getattr(pack, f)) if g is None else g
-            for f, g in zip(fields, grads)}
+    def loss(pack, px, py, smp, seed):
+        ctx = vrng.Ctx(pixel=py * camera.image_width + px, sample=smp, bounce=0, seed=seed)
+        org, dirn = camera.generate_rays(px, py, smp, ctx)
+        rad = integrator.trace(pack, static, org, dirn, ctx, DEPTH, camera.light_bias,
+                               compact=False, differentiable=True, kernel=kernel, remat=remat)
+        return (rad ** 2).mean()
+
+    def lanes(pack, seed):
+        ar = torch.arange(GRAD_LANES, device=pack.device)
+        return (ar % camera.image_width, (ar // camera.image_width) % camera.image_height,
+                torch.zeros_like(ar), torch.tensor(seed, dtype=torch.int64, device=pack.device))
+
+    def named(pack, out):
+        return out[0], dict(zip(pack.float_fields(), out[1]))
+
+    def eager(pack, seed):
+        return named(pack, graphs.value_and_grad(loss, pack.with_grad(), *lanes(pack, seed)))
+
+    def graphed(pack, seed):
+        return named(pack, graphed.grad(pack, *lanes(pack, seed)))
+
+    def capture(body, device):
+        graphed.captures.append(device)
+        return graphs.cuda_capture(body, device)
+
+    graphed.grad = graphs.GraphedGrad(loss, capture=capture)
+    graphed.captures = []
+    return eager, graphed
 
 
 def grad_gap(a, b):
@@ -1727,13 +1758,15 @@ def mesh_phase(renderer, wf_renderer, b_renderer, camera, wf_overflow, dev, card
     overflow equal to the unsharded wavefront render's; the batch render
     through K3 with 1 and 2 shards (images compared, pixels not bit-equal
     counted); train_step_fn at GRAD_LANES lanes through K3 with 1 and 2
-    shards (loss and gradients equal after normalisation, rtol 1e-5).
+    shards, eager and graphed (one capture, then one replay a shard a step;
+    graphed within 1e-5 of eager; the 2-shard loss and gradients equal to
+    the 1-shard ones after normalisation, rtol 1e-5).
     Returns the launches of each kernel on these sharded paths."""
     from rust_raytracer_torch.core import rng as vrng
     from rust_raytracer_torch.ops import bvh8, threaded
     from rust_raytracer_torch.ops import wavefront as wf
     from rust_raytracer_torch.parallel import mesh as pmesh
-    from rust_raytracer_torch.render import integrator
+    from rust_raytracer_torch.render import graphs, integrator
 
     one, two = pmesh.make_mesh(1), pmesh.make_mesh(device=[dev, dev])
     total = camera.image_width * camera.image_height * SPP
@@ -1814,21 +1847,54 @@ def mesh_phase(renderer, wf_renderer, b_renderer, camera, wf_overflow, dev, card
                                 kernel="threaded")
 
     res = {}
+    real_capture = graphs.cuda_capture
     for n, mesh in ((1, one), (2, two)):
-        reset()
-        step = pmesh.train_step_fn(batch_fn, lambda r, t: (r ** 2).mean(), mesh)
-        t0 = time.perf_counter()
-        loss, grads = step(tpack, px, py, smp, 0, torch.zeros((GRAD_LANES, 3), device=dev))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches["threaded_traverse"] += threaded.launches
+        secs, out = {}, {}
+        for graph in (False, True):
+            captures = []
+
+            def capture(body, device):
+                captures.append(device)
+                return real_capture(body, device)
+
+            graphs.cuda_capture = capture
+            try:
+                step = pmesh.train_step_fn(batch_fn, lambda r, t: (r ** 2).mean(), mesh,
+                                           kernel="threaded", graph=graph)
+                secs[graph] = []
+                for _ in range(1 + int(graph)):
+                    reset()
+                    t0 = time.perf_counter()
+                    out[graph] = step(tpack, px, py, smp, 0,
+                                      torch.zeros((GRAD_LANES, 3), device=dev))
+                    torch.cuda.synchronize()
+                    secs[graph].append(time.perf_counter() - t0)
+                    launches["threaded_traverse"] += threaded.launches
+                    if threaded.launches != n * 20 or threaded.plain_calls:
+                        raise AssertionError(f"train_step_fn, {n} shard(s), graph {graph}: K3 "
+                                             f"launches {threaded.launches}")
+            finally:
+                graphs.cuda_capture = real_capture
+            del step
+            if len(captures) != int(graph):
+                raise AssertionError(f"train_step_fn, {n} shard(s), graph {graph}: "
+                                     f"{len(captures)} captures")
+        loss, grads = out[True]
         res[n] = (float(loss) / n, {f: g / n for f, g in zip(tpack.float_fields(), grads)})
-        log(f"mesh train_step_fn, K3, {n} shard(s): {GRAD_LANES} lanes, depth {DEPTH}: "
-            f"{secs * 1e3:.1f} ms, K3 launches {threaded.launches} ({card})")
+        e_gap = grad_gap(dict(zip(tpack.float_fields(), out[True][1])),
+                         dict(zip(tpack.float_fields(), out[False][1])))
+        log(f"mesh train_step_fn, K3, {n} shard(s): {GRAD_LANES} lanes, depth {DEPTH}: eager "
+            f"{secs[False][0] * 1e3:.1f} ms a step, graphed "
+            f"{secs[True][1] * 1e3:.1f} ms a step, {n} replay(s) of one capture (the first "
+            f"{secs[True][0] * 1e3:.1f} ms with the capture); K3 launches {n * 20} a step "
+            f"both ways; graphed vs eager: loss equal {bool(out[True][0] == out[False][0])}, "
+            f"gradients max |d|/max |g| {e_gap:.3e} (bound 1e-5) ({card})")
+        if not e_gap <= 1e-5:
+            raise AssertionError(f"train_step_fn, {n} shard(s): graphed differs from eager")
     loss_gap = abs(res[2][0] - res[1][0]) / abs(res[1][0])
     gap = grad_gap(res[2][1], res[1][1])
-    log(f"mesh train_step_fn, 2 shards / 2 vs 1 shard: loss rel {loss_gap:.3e}, gradients max "
-        f"|d|/max |g| {gap:.3e} (bound 1e-5)")
+    log(f"mesh train_step_fn, graphed, 2 shards / 2 vs 1 shard: loss rel {loss_gap:.3e}, "
+        f"gradients max |d|/max |g| {gap:.3e} (bound 1e-5)")
     if not (loss_gap <= 1e-5 and gap <= 1e-5):
         raise AssertionError("train_step_fn at 2 shards disagrees with 1 shard")
     return dict(launches)
@@ -2084,6 +2150,193 @@ def graph_phase(renderer, wf_renderer, b_renderer, camera, dev, card):
         out[kernel] = graph_render_pair(r, kernel, camera, dev, card, names)
         out[kernel]["split"] = step_split(r, camera, card, names, graph=True)
     out["batch"] = graph_batch(b_renderer, camera, dev, card)
+    return out
+
+
+def grad_graph_phase(pack, static, camera, card, kept):
+    """Phase 26: the fwd+bwd step graphed (render/graphs.py:GraphedGrad)
+    against the eager step, in turns at seeds 1, 2 and 3 (eager, graphed;
+    at seed 1 eager once more), for remat "none", "hits" and "full",
+    through K3 ("threaded") and K1 ("auto"): the loss bit-equal (no
+    atomics in the forward under compact=False); the gradients within the
+    gap between the two eager runs at seed 1, printed beside it, and
+    within 1e-5 of each field's largest entry; one capture for the three
+    seeds; the walk's launches = replays x 20 (x 40 under "full", whose
+    backward recomputes the traversal), no other traversal kernel and no
+    plain call; a steady replay's wall ms and pixel-samples/s beside the
+    eager step's, one graphed step's device busy ms (profiled; K1's "none"
+    and "hits" steps are not profiled), the peak memory of the eager and
+    the graphed calls above what was allocated when each began (a capture
+    included) and the memory the capture holds.  `kept` holds phase 16's steps (threaded "none" and "hits"),
+    captured at seed 0 and split there: they are replayed here, and their
+    capture, memory and split are phase 16's.  Returns {(kernel, remat):
+    numbers}."""
+    from rust_raytracer_torch.ops import bvh8, threaded
+    from rust_raytracer_torch.render import graphs
+
+    walks = {"threaded": "threaded_traverse", "auto": "bvh8_traverse"}
+    out = {}
+    for kernel, name in walks.items():
+        for remat in ("none", "hits", "full"):
+            t_combo = time.perf_counter()
+            row = kept.pop((kernel, remat), None)
+            if row is None:
+                eager, graphed = grad_steps(static, camera, remat, kernel)
+            else:
+                eager, graphed = row["eager"], row["graphed"]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base, base_res = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            plain = (bvh8.plain_calls, threaded.plain_calls)
+            ms = {"eager": [], "graphed": []}
+            peaks = {"eager": 0, "graphed": 0}
+            launched, loss_equal, gaps, spread = Counter(), True, [], None
+            for seed in (1, 2, 3):
+                res = {}
+                for tag in ("eager", "graphed", "eager again")[:3 if seed == 1 else 2]:
+                    mode = "graphed" if tag == "graphed" else "eager"
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    start = torch.cuda.memory_allocated()
+                    before = graphs.launch_counts()
+                    t0 = time.perf_counter()
+                    res[tag] = (graphed if tag == "graphed" else eager)(pack, seed)
+                    torch.cuda.synchronize()
+                    ms[mode].append((time.perf_counter() - t0) * 1e3)
+                    peaks[mode] = max(peaks[mode], torch.cuda.max_memory_allocated() - start)
+                    if tag == "graphed":
+                        launched.update({k: v - before[k]
+                                         for k, v in graphs.launch_counts().items()})
+                loss_equal &= torch.equal(res["graphed"][0], res["eager"][0])
+                gaps.append(grad_gap(res["graphed"][1], res["eager"][1]))
+                if seed == 1:
+                    spread = grad_gap(res["eager again"][1], res["eager"][1])
+            del res
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graphed(pack, 4)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            cap = the_capture(graphed.grad)
+            nodes = sum(graph_nodes(cap.graph).values())
+            if row is None:
+                held = torch.cuda.memory_allocated() - base
+                torch.cuda.empty_cache()
+                held_res = torch.cuda.memory_reserved() - base_res
+                # the walks are <= 0.7% of a step: K1's none and hits steps are
+                # not profiled again (K3's are phase 16's)
+                busy = None if (kernel, remat) in (("auto", "none"), ("auto", "hits")) else (
+                    device_split(f"fwd+bwd step, {kernel}, remat={remat}, graphed",
+                                 lambda: graphed(pack, 5), card, (name,))["busy"][0])
+                row = dict(busy_ms=busy, peak=peaks["graphed"], held=held,
+                           held_reserved=held_res, nodes=nodes, capture_s=cap.seconds)
+                src = "this phase's"
+            else:
+                src = "phase 16's"
+            graphed.grad.release()
+            del cap
+            per = 40 if remat == "full" else 20
+            launched = {k: v for k, v in launched.items() if v}
+            e_ms = float(np.mean(ms["eager"]))
+            busy_txt = ("not profiled" if row["busy_ms"] is None
+                        else f"{row['busy_ms']:.1f} ms (profiled)")
+            out[(kernel, remat)] = dict(
+                eager_ms=e_ms, graphed_ms=wall_ms, gap=max(gaps), eager_gap=spread,
+                eager_peak=peaks["eager"], **{k: v for k, v in row.items()
+                                               if k not in ("eager", "graphed")})
+            log(f"grad graph, {kernel}, remat={remat}: seeds 1-3 in turns (eager, graphed): "
+                f"loss graphed = eager bit for bit: {loss_equal}; gradients graphed vs eager "
+                f"max |d| / max |g| {', '.join(f'{x:.3e}' for x in gaps)}, eager vs eager at "
+                f"seed 1 {spread:.3e} (bound: that gap, and 1e-5); captures "
+                f"{len(graphed.captures)}; graphed launches {launched} in 3 replays ({per} a "
+                f"step), plain calls "
+                f"{bvh8.plain_calls - plain[0] + threaded.plain_calls - plain[1]}; eager "
+                f"{e_ms:.1f} ms a step (mean of 4), graphed {wall_ms:.1f} ms, one replay ("
+                f"{GRAD_LANES / wall_ms * 1e3:.1f} pixel-samples/s against eager "
+                f"{GRAD_LANES / e_ms * 1e3:.1f}); peak memory above a call's start: eager "
+                f"{peaks['eager'] / 2**30:.3f} GiB, graphed calls "
+                f"{peaks['graphed'] / 2**30:.3f} GiB; {src} capture, memory and split: "
+                f"{row['capture_s']:.3f} s set-up, {row['nodes']} graph nodes, peak "
+                f"{row['peak'] / 2**30:.3f} GiB above its start (capture included), held "
+                f"{row['held'] / 2**20:.1f} MiB allocated and {row['held_reserved'] / 2**30:.3f} "
+                f"GiB reserved, device busy {busy_txt} a graphed step; "
+                f"{time.perf_counter() - t_combo:.1f} s ({card})")
+            if not loss_equal:
+                raise AssertionError(f"grad graph {kernel} {remat}: the loss differs")
+            if not max(gaps) <= min(spread, 1e-5):
+                raise AssertionError(f"grad graph {kernel} {remat}: gradients off by "
+                                     f"{max(gaps):.3e}, eager vs eager {spread:.3e}")
+            if len(graphed.captures) != 1 or launched != {name: 3 * per} or (
+                    bvh8.plain_calls, threaded.plain_calls) != plain:
+                raise AssertionError(f"grad graph {kernel} {remat}: captures "
+                                     f"{len(graphed.captures)}, launches {launched}")
+            del eager, graphed
+    return out
+
+
+def unbounded_cached(cache, pins, values, build):
+    """render/graphs.py:cached as it stood before its bound: an entry for
+    every key, none dropped."""
+    key = tuple(id(p) for p in pins) + values
+    if key not in cache:
+        cache[key] = (pins, build())
+    return cache[key][1]
+
+
+def cache_memory(scene, camera, dev, card):
+    """Phase 27: the Renderer's graph cache over renders at k seeds: the
+    device memory (allocated; reserved after empty_cache, which keeps the
+    live graphs' pools) after k = 1, 2 and 4 rounds of a pool render and a
+    batch render at seeds 0..k-1, for "auto" and "wavefront", with the
+    cache as it stood before its bound (unbounded, and every graph keyed
+    by the seed, as the batch bounce's was: `unbounded_cached` into a
+    cache of its own, with the renderer's seed added to each key) and
+    with the bounded cache, on one Renderer a kernel.  The bounded cache's
+    memory must not grow with k: from k = 1 to 4 by at most 8 MiB
+    allocated and 64 MiB reserved, where each further seed adds ~54 MiB
+    allocated and ~400-1,500 MiB reserved to the unbounded cache (an
+    allocation of ~1 MiB made once after the first render, seen in one
+    run, is not growth with k)."""
+    from rust_raytracer_torch.render import graphs
+    from rust_raytracer_torch.render.renderer import Renderer
+
+    bounded = graphs.cached
+    out = {}
+    for kernel in ("auto", "wavefront"):
+        r = Renderer(scene, camera, batch_size=LANES, kernel=kernel, device=dev)
+        for repaired in (False, True):
+            old = {}
+            if not repaired:
+                graphs.cached = lambda cache, pins, values, build: unbounded_cached(
+                    old, pins, values + (r.seed,), build)
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+                mem = {}
+                for k in range(4):
+                    r.seed = k
+                    r.render(mode="pool")
+                    r.render(mode="batch")
+                    if k + 1 in (1, 2, 4):
+                        torch.cuda.synchronize()
+                        torch.cuda.empty_cache()
+                        mem[k + 1] = (torch.cuda.memory_allocated() - base[0],
+                                      torch.cuda.memory_reserved() - base[1])
+            finally:
+                graphs.cached = bounded
+            entries = len(r._graphs if repaired else old)
+            del old
+            tag = "bounded" if repaired else "unbounded, keyed by seed (before the bound)"
+            out[(kernel, repaired)] = mem
+            log(f"graph cache memory, {kernel}, {tag}: after k renders (pool + batch) at k "
+                f"seeds, above the start: " + "; ".join(
+                    f"k={k}: {a / 2**20:.1f} MiB allocated, {v / 2**20:.1f} MiB reserved"
+                    for k, (a, v) in mem.items()) + f"; {entries} cache entries ({card})")
+            if repaired and not (mem[4][0] <= mem[1][0] + 8 * 2**20
+                                 and mem[4][1] <= mem[1][1] + 64 * 2**20):
+                raise AssertionError(f"the bounded graph cache grew with k: {mem}")
+        del r
     return out
 
 
@@ -2403,34 +2656,54 @@ def main():
         "batch render (K3)", lambda: b_renderer.render(mode="batch"), card,
         ("threaded_traverse",))["threaded_traverse"]}
 
-    # ---- 16. the fwd+bwd step (bench.py's bench_backward) through K3:
-    # 2^15 lanes, depth 20, gradients of every float table ----
-    gpack = tpack.with_grad()
-    grads, rates = {}, {}
+    # ---- 16. the fwd+bwd step (bench.py's bench_backward) through K3,
+    # graphed (render/graphs.py:GraphedGrad): 2^15 lanes, depth 20,
+    # gradients of every float table ----
+    grads, kept = {}, {}
     for remat in ("none", "hits"):
-        grads[remat] = grad_step(gpack, renderer.static, camera, remat, "threaded", seed=0)
+        eager, step = grad_steps(renderer.static, camera, remat, "threaded")
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base, base_res = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         torch.cuda.reset_peak_memory_stats()
         threaded.launches = threaded.plain_calls = 0
         t0 = time.perf_counter()
+        grads[remat] = step(tpack, 0)[1]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         for r in range(3):
-            grad_step(gpack, renderer.static, camera, remat, "threaded", seed=r + 1)
+            step(tpack, r + 1)
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / 3
-        peak = torch.cuda.max_memory_allocated()
-        rates[remat] = GRAD_LANES / step_s
-        if not (threaded.launches > 0 and threaded.plain_calls == 0):
-            raise AssertionError(f"fwd+bwd {remat}: K3 launches {threaded.launches}, plain "
-                                 f"calls {threaded.plain_calls}")
-        log(f"fwd+bwd remat={remat}: cornell_dragon, {GRAD_LANES} lanes, depth {DEPTH}, "
-            f"{len(grads[remat])} float tables: {rates[remat]:.1f} pixel-samples/s "
-            f"({step_s * 1e3:.1f} ms a step, mean of 3 after a warm-up), peak memory "
-            f"{peak / 2**30:.3f} GiB ({peak} bytes), K3 launches {threaded.launches} in 3 "
-            f"steps, plain calls 0 ({card})")
-        k3_split[f"fwd+bwd step ({remat})"] = device_split(
-            f"fwd+bwd step, remat={remat}",
-            lambda: grad_step(gpack, renderer.static, camera, remat, "threaded", seed=4),
-            card, ("threaded_traverse",))["threaded_traverse"]
+        peak = torch.cuda.max_memory_allocated() - base
+        held = torch.cuda.memory_allocated() - base
+        torch.cuda.empty_cache()
+        held_res = torch.cuda.memory_reserved() - base_res
+        cap = the_capture(step.grad)
+        nodes = graph_nodes(cap.graph)
+        if not (threaded.launches == 4 * 20 and threaded.plain_calls == 0
+                and cap.launched == {"threaded_traverse": 20}):
+            raise AssertionError(f"fwd+bwd {remat}: K3 launches {threaded.launches} in 4 "
+                                 f"replays, plain calls {threaded.plain_calls}, a capture's "
+                                 f"{cap.launched}")
+        log(f"fwd+bwd remat={remat}, graphed: cornell_dragon, {GRAD_LANES} lanes, depth "
+            f"{DEPTH}, {len(grads[remat])} float tables: {GRAD_LANES / step_s:.1f} "
+            f"pixel-samples/s ({step_s * 1e3:.1f} ms a step, one replay, mean of 3 after the "
+            f"first; the first {first_s:.3f} s with its capture, {cap.seconds:.3f} s set-up), "
+            f"graph nodes {dict(nodes)} ({sum(nodes.values())} in all), peak memory above "
+            f"the start {peak / 2**30:.3f} GiB ({peak} bytes, capture included), held after "
+            f"the calls {held / 2**20:.1f} MiB allocated (the static gradients and the "
+            f"first call's), {held_res / 2**30:.3f} GiB reserved (the graph's pool), K3 "
+            f"launches {threaded.launches} in 4 replays, plain calls 0 ({card})")
+        split16 = device_split(f"fwd+bwd step, remat={remat}, graphed", lambda: step(tpack, 4),
+                               card, ("threaded_traverse",))
+        k3_split[f"fwd+bwd step ({remat})"] = split16["threaded_traverse"]
+        # phase 26 replays this capture at seeds 1-3 against the eager step
+        kept[("threaded", remat)] = dict(
+            eager=eager, graphed=step, busy_ms=split16["busy"][0], peak=peak, held=held,
+            held_reserved=held_res, nodes=sum(nodes.values()), capture_s=cap.seconds)
+        del step, cap
     g0 = grads["none"]
     bad = [f for f, gr in g0.items() if not bool(torch.isfinite(gr).all())]
     if bad:
@@ -2438,18 +2711,18 @@ def main():
     if not g0["tex_const"].abs().max() > 0:
         raise AssertionError("the gradient of tex_const is zero")
     remat_gap = grad_gap(grads["hits"], g0)
-    g_auto = grad_step(gpack, renderer.static, camera, "none", "auto", seed=0)
+    g_auto = grad_steps(renderer.static, camera, "none", "auto")[0](tpack, 0)[1]
     auto_gap = grad_gap(g_auto, g0)
     used = sum(int(gr.numel() > 0 and gr.abs().max() > 0) for gr in g0.values())
     log(f"fwd+bwd gradients: all finite, {used} of {len(g0)} tables nonzero, |tex_const| max "
-        f"{float(g0['tex_const'].abs().max()):.4e}; remat hits vs none: max |d| / max |g| "
-        f"{remat_gap:.3e} (bound 1e-5); kernel auto (BVH8) vs threaded: {auto_gap:.3e} "
-        f"(bound 1e-3)")
+        f"{float(g0['tex_const'].abs().max()):.4e}; remat hits vs none (graphed): max |d| / "
+        f"max |g| {remat_gap:.3e} (bound 1e-5); kernel auto (BVH8, eager) vs threaded: "
+        f"{auto_gap:.3e} (bound 1e-3)")
     if not remat_gap <= 1e-5:
         raise AssertionError("remat 'hits' and 'none' give different gradients")
     if not auto_gap <= 1e-3:
         raise AssertionError("the BVH8 walk's gradients differ from K3's")
-    del gpack, grads, g0, g_auto
+    del grads, g0, g_auto
 
     # ---- 17. small gradients on the card against the same on the CPU: the
     # scene of tests/_grad_fd_main.py (spheres and planes), then the
@@ -2495,6 +2768,13 @@ def main():
     # ---- 25. the pool step and the batch bounce as CUDA graphs against
     # the eager ones ----
     graph_phase(renderer, wf_renderer, b_renderer, camera, dev, card)
+
+    # ---- 26. the fwd+bwd step as one CUDA graph against the eager step ----
+    grad_graph_phase(tpack, renderer.static, camera, card, kept)
+    del kept
+
+    # ---- 27. the Renderer's graph cache does not grow with the seeds ----
+    cache_memory(scene, camera, dev, card)
 
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")

@@ -24,6 +24,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from ..render import graphs
+
 # shards a process contributes, as init_multihost's local_device_count set it
 _local_count: Optional[int] = None
 
@@ -187,29 +189,59 @@ def shard_batch_fn(batch_fn, mesh: Mesh):
     return sharded
 
 
-def train_step_fn(batch_fn, loss_of_radiance, mesh: Mesh):
+def train_step_fn(batch_fn, loss_of_radiance, mesh: Mesh, kernel: str = "auto",
+                  graph: bool = True):
     """A sharded differentiable step `(pack, px, py, sample, seed, target)
     -> (loss, grads)`: each shard's loss of its lanes' radiance, and its
     gradients with respect to the pack's float tables
     (ScenePack.float_fields(), in that order; zeros where a table takes no
     part), both SUMMED over the shards and the processes — the reference's
     psum, so a loss that is a mean over lanes comes out n_shards times the
-    one-shard mean.  `target` is split over the lanes as px is."""
+    one-shard mean.  `target` is split over the lanes as px is; `seed` (an
+    int or an integer tensor) reaches batch_fn as a 0-d int64 tensor on the
+    shard's device.
+
+    `kernel` is the walk batch_fn traces.  On a CUDA device (where
+    render/graphs.applies for it) each shard's forward and backward pass is
+    one replay of a graphs.GraphedGrad, captured at the first step on each
+    device and replayed at every seed; graph=False keeps them eager, the
+    reference the graphs are held against.  The cross-shard sums, the
+    copies home and the all-reduce run eagerly around them.  A pack on
+    another device than a shard's is copied there once, and its float
+    tables copied in again each step."""
+    def shard_loss(p, px, py, sample, seed, target):
+        return loss_of_radiance(batch_fn(p, px, py, sample, seed), target)
+
+    graphed = graphs.GraphedGrad(shard_loss)
+    held: Dict[torch.device, tuple] = {}   # device -> (pack, its replica there)
+
+    def replica(pack, dev):
+        if dev == pack.device:
+            return pack
+        src, rep = held.get(dev, (None, None))
+        if src is None or not graphs.same_pack(src, pack):
+            rep = pack.to(dev)
+            held[dev] = (pack, rep)
+        else:
+            for f in pack.float_fields():
+                getattr(rep, f).copy_(getattr(pack, f))
+        return rep
 
     def step(pack, px, py, sample, seed, target):
-        replica = replicas(pack)
         fields = pack.float_fields()
         home = pack.device
         loss = torch.zeros((), dtype=pack.dtype, device=home)
         grads = [torch.zeros_like(getattr(pack, f)) for f in fields]
         for dev, sl in zip(mesh.devices, _lane_slices(mesh, px.shape[0])):
-            p = replica(dev).with_grad()
-            rad = batch_fn(p, px[sl].to(dev), py[sl].to(dev), sample[sl].to(dev), seed)
-            shard_loss = loss_of_radiance(rad, target[sl].to(dev))
-            g = torch.autograd.grad(shard_loss, [getattr(p, f) for f in fields],
-                                    allow_unused=True)
-            loss = loss + shard_loss.detach().to(home)
-            grads = [acc if gi is None else acc + gi.to(home) for acc, gi in zip(grads, g)]
+            p = replica(pack, dev)
+            lanes = (px[sl].to(dev), py[sl].to(dev), sample[sl].to(dev),
+                     torch.as_tensor(seed, dtype=torch.int64).to(dev), target[sl].to(dev))
+            if graph and graphs.applies(dev, kernel, p):
+                part, part_grads = graphed(p, *lanes)
+            else:
+                part, part_grads = graphs.value_and_grad(shard_loss, p.with_grad(), *lanes)
+            loss = loss + part.to(home)
+            grads = [acc + gi.to(home) for acc, gi in zip(grads, part_grads)]
         return (all_reduce_sum(mesh, loss),
                 tuple(all_reduce_sum(mesh, gi) for gi in grads))
 

@@ -1,27 +1,37 @@
 """Steps replayed as CUDA graphs: the port's counterpart of the reference's
-compiled and donated step, `jax.jit(step, donate_argnums=(1,))`
-(rust_raytracer_tpu/render/pool.py:279 and :292, and the batch trace's
-jitted bounce loop, render/renderer.py:77).
+compiled steps, the pool step and the batch bounce loop
+(`jax.jit(step, donate_argnums=(1,))`, rust_raytracer_tpu/render/pool.py:279
+and :292, render/renderer.py:77) and the gradient step
+(`jax.jit(jax.grad(loss))`, bench.py:87; parallel/mesh.py:125's
+train_step_fn).
 
 Eagerly, a pool step or a batch bounce is ~1,700 kernel launches from
-Python, and the host, not the card, sets its time.  `GraphedStep` captures
-one call of a step function into a `torch.cuda.CUDAGraph` and replays it:
-one launch a step.  The five traversal kernels run inside the graph as
-they run eagerly (ops/_cuda.py launches on the current stream, which is
-the capturing stream during a capture).
+Python and a fwd+bwd step ~57,600, and the host, not the card, sets their
+time.  `GraphedStep` captures one call of a step function into a
+`torch.cuda.CUDAGraph` and replays it: one launch a step.  `GraphedGrad`
+does the same for a loss's forward and its whole backward pass
+(`torch.autograd.grad`), one launch a gradient step.  The five traversal
+kernels run inside the graphs as they run eagerly (ops/_cuda.py launches
+on the current stream, which is the capturing stream during a capture,
+and the autograd engine runs a backward op, a checkpoint's recompute
+included, on its forward op's stream).
 
-What a capture needs of the step (tests/test_torch_graph.py checks it on
-the CPU): no read of the device back (`.item()`, `bool(t)`, `nonzero`,
-masked indexing) and no tensor built from host memory (`torch.tensor` of
-Python data is a pageable host-to-device copy, which a capturing stream
-refuses).  Constants a step builds lazily (the camera's) are built by the
-warm-up call that precedes every capture.
+What a capture needs of the step (tests/test_torch_graph.py and
+tests/test_torch_grad_graph.py check it on the CPU, forward and backward):
+no read of the device back (`.item()`, `bool(t)`, `nonzero`, masked
+indexing) and no tensor built from host memory (`torch.tensor` of Python
+data is a pageable host-to-device copy, which a capturing stream refuses).
+Constants a step builds lazily (the camera's, a checkpoint's recompute)
+are built by the warm-up call that precedes every capture.
 
-The graph runs only where it can: a CUDA device and a walk that launches a
-traversal kernel (`applies`).  The "jnp" walk (torch ops that read the
-device back, the f64 validation walk) and the CPU run eagerly; so does a
-step under metrics.debug_nans, whose check reads the outputs back.  A
-capture or replay that fails raises; nothing carries on eagerly.
+What stays eager: the graph runs only where it can, on a CUDA device and
+a walk that launches a traversal kernel (`applies`).  The "jnp" walk
+(torch ops that read the device back, the f64 validation walk) and the CPU
+run eagerly; so does a step under metrics.debug_nans, whose check reads
+the outputs back.  Around the graphs, the host still runs the pool's poll
+and refill reads, the batch trace's one `alive.any()` read a bounce, and a
+sharded step's slicing, copies and cross-shard sums.  A capture or replay
+that fails raises; nothing carries on eagerly.
 """
 from __future__ import annotations
 
@@ -69,18 +79,19 @@ def cuda_capture(body: Callable[[], None], device) -> torch.cuda.CUDAGraph:
 
 class Capture(NamedTuple):
     """One captured call: the pack and state layout it was captured for,
-    its static state buffers, the graph (anything with `replay()`), the
-    launches of one call by kernel, and the seconds the warm-up and capture
-    took."""
+    its static input buffers, the graph (anything with `replay()`), the
+    launches of one call by kernel, the seconds the warm-up and capture
+    took, and (GraphedGrad) the list holding the static outputs."""
     pack: object
     key: tuple
     inputs: tuple
     graph: object
     launched: Dict[str, int]
     seconds: float
+    outputs: Optional[list] = None
 
 
-def _same_pack(a, b) -> bool:
+def same_pack(a, b) -> bool:
     """Whether two scene packs hold the same tensors (the graph reads their
     addresses) and the same host-side values.  A pack rebuilt around the
     same tensors (pack.to(its own device)) is the same; ScenePack.with_grad
@@ -136,7 +147,7 @@ class GraphedStep:
         dev = state[0].device
         key = tuple((t.shape, t.dtype) for t in state)
         cap = self.captures.get(dev)
-        if cap is None or cap.key != key or not _same_pack(cap.pack, pack):
+        if cap is None or cap.key != key or not same_pack(cap.pack, pack):
             cap = self.captures[dev] = None   # free the old graph first
             cap = self.captures[dev] = self._record(pack, state, key)
         elif not self._holds(state):
@@ -165,33 +176,141 @@ class GraphedStep:
             for buf, t in zip(inputs, out):
                 buf.copy_(t)
 
-        counts = launch_counts()
-        try:
-            with torch.no_grad():
-                if dev.type == "cuda":
-                    side = torch.cuda.Stream(dev)
-                    side.wait_stream(torch.cuda.current_stream(dev))
-                    with torch.cuda.stream(side):
-                        self.fn(pack, inputs)
-                    torch.cuda.current_stream(dev).wait_stream(side)
-                else:
-                    self.fn(pack, inputs)
-                after = launch_counts()
-                graph = (self._capture or cuda_capture)(body, dev)
-        finally:
-            _set_launches(counts)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with torch.no_grad():
+            graph, launched = _warm_and_capture(lambda: self.fn(pack, inputs), body, dev,
+                                                self._capture)
         self._last = ()
-        launched = {k: after[k] - counts[k] for k in counts if after[k] != counts[k]}
         return Capture(pack, key, inputs, graph, launched, time.perf_counter() - t0)
+
+
+def _warm_and_capture(warm: Callable[[], None], body: Callable[[], None], dev,
+                      capture: Optional[Callable]):
+    """Run `warm()` once eagerly (on a side stream on the card, as
+    torch.cuda.graphs requires), then capture `body` on `dev` with
+    `capture` (default `cuda_capture`).  Neither moves the launch counters.
+    Returns (the graph, the warm-up's launches by kernel)."""
+    counts = launch_counts()
+    try:
+        if dev.type == "cuda":
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                warm()
+            torch.cuda.current_stream(dev).wait_stream(side)
+        else:
+            warm()
+        after = launch_counts()
+        graph = (capture or cuda_capture)(body, dev)
+    finally:
+        _set_launches(counts)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return graph, {k: after[k] - counts[k] for k in counts if after[k] != counts[k]}
+
+
+def value_and_grad(fn: Callable, pack, *lanes):
+    """`fn(pack, *lanes)`, a 0-d loss, and its gradients with respect to the
+    pack's float tables (ScenePack.float_fields(), in that order; zeros
+    where a table takes no part), eagerly.  `pack` holds the leaves
+    (ScenePack.with_grad).  Returns (loss, grads), the loss detached."""
+    leaves = [getattr(pack, f) for f in pack.float_fields()]
+    loss = fn(pack, *lanes)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), tuple(torch.zeros_like(x) if g is None else g
+                                for x, g in zip(leaves, grads))
+
+
+class GraphedGrad:
+    """`step(pack, *lanes) -> (loss, grads)`: `value_and_grad(fn, ...)`
+    with the forward and the whole backward pass replayed as one CUDA
+    graph, the port's `jax.jit(jax.value_and_grad(loss))`.
+
+    `fn(pack, *lanes)` returns a 0-d loss that is differentiable in the
+    pack's float tables; `lanes` are tensors on the pack's device (pixel
+    and sample ids, a target, the seed as a 0-d int64 tensor: core/rng.py
+    takes it as it takes an int, so one capture serves every seed).  The
+    step returns clones of the loss and of one gradient a float table, in
+    ScenePack.float_fields() order, zeros where a table takes no part.
+
+    One capture per device, for the last pack and lane layout seen there
+    (another pack or lane shape is captured anew, never replayed through a
+    stale graph).  The capture's leaves are `pack.with_grad()`, made once:
+    they share storage with the pack's tables, so values written into
+    those tables in place are read by the next replay.  The lanes are
+    copied into static buffers before each replay.  A capture is preceded
+    by one eager forward and backward on a side stream, with grad enabled,
+    which builds the kernel library and what a checkpoint's recompute
+    builds lazily, and counts the launches of one step (a remat "full"
+    step launches its traversal again in the backward pass).  Neither the
+    warm-up nor the capture moves the launch counters; each replay
+    advances them by the warm-up's count.  The graph's private memory pool
+    holds the step's activations while the capture lives; `release()`
+    frees it.  Under metrics.debug_nans the step runs eagerly.
+
+    `capture(body, device)` returns the graph of `body` (default
+    `cuda_capture`); a test may stand in for it.
+    """
+
+    def __init__(self, fn: Callable, capture: Optional[Callable] = None):
+        self.fn = fn
+        self._capture = capture
+        self.captures: Dict[torch.device, Capture] = {}
+
+    def __call__(self, pack, *lanes):
+        if metricsmod.nan_checks():
+            return value_and_grad(self.fn, pack.with_grad(), *lanes)
+        dev = pack.device
+        key = tuple((t.shape, t.dtype) for t in lanes)
+        cap = self.captures.get(dev)
+        if cap is None or cap.key != key or not same_pack(cap.pack, pack):
+            self.release(dev)
+            cap = self.captures[dev] = self._record(pack, lanes, key)
+        for buf, t in zip(cap.inputs, lanes):
+            buf.copy_(t)
+        counts = launch_counts()
+        cap.graph.replay()
+        _set_launches({k: n + cap.launched.get(k, 0) for k, n in counts.items()})
+        loss, grads = cap.outputs[0]
+        return loss.clone(), tuple(g.clone() for g in grads)
+
+    def release(self, device=None) -> None:
+        """Drop the capture on `device` (every capture without one): its
+        graph, its memory pool and its static buffers."""
+        for dev in list(self.captures) if device is None else [device]:
+            cap = self.captures.pop(dev, None)
+            if cap is not None and hasattr(cap.graph, "reset"):
+                cap.graph.reset()
+
+    def _record(self, pack, lanes, key) -> Capture:
+        t0 = time.perf_counter()
+        dev = pack.device
+        leaves = pack.with_grad()
+        inputs = tuple(t.clone() for t in lanes)
+        outputs = []
+
+        def body():
+            outputs[:] = [value_and_grad(self.fn, leaves, *inputs)]
+
+        def warm():
+            body()
+            outputs.clear()
+
+        with torch.enable_grad():
+            graph, launched = _warm_and_capture(warm, body, dev, self._capture)
+        return Capture(pack, key, inputs, graph, launched, time.perf_counter() - t0, outputs)
 
 
 def cached(cache: dict, pins: tuple, values: tuple, build: Callable):
     """cache's entry for (the objects `pins`, by identity, and the hashable
     `values`), made by `build()` at first use.  The pins are kept beside
-    the entry, so their ids are not reused while it lives."""
-    key = tuple(id(p) for p in pins) + values
+    the entry, so their ids are not reused while it lives.  The cache holds
+    the newest entry of each kind (`values[0]`): a new entry drops the
+    older ones of its kind, and with them their graphs and memory pools,
+    before it is built."""
+    kind = values[0]
+    key = (kind, tuple(id(p) for p in pins)) + tuple(values[1:])
     if key not in cache:
+        for old in [k for k in cache if k[0] == kind]:
+            del cache[old]
         cache[key] = (pins, build())
     return cache[key][1]

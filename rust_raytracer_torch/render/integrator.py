@@ -11,9 +11,14 @@ so reordering changes no sample.
 
 `trace(differentiable=True)` is the reverse-mode form: every bounce runs (no
 early exit), the traversal is detached (ops/intersect.py runs it under
-torch.no_grad()), and `remat` picks what the backward pass recomputes.
-`trace(differentiable=False)` on the card replays each bounce as a CUDA
-graph (render/graphs.py), the counterpart of the reference's jitted loop.
+torch.no_grad()), and `remat` picks what the backward pass recomputes.  It
+makes no host read, so a caller can capture it with its loss and backward
+pass as one CUDA graph (render/graphs.py:GraphedGrad, as
+parallel/mesh.py:train_step_fn does on the card); called alone it runs
+eagerly.  `trace(differentiable=False)` with a graph cache replays each
+bounce as a CUDA graph on the card (graphs.GraphedStep), the counterpart
+of the reference's jitted loop; the loop over bounces, with its one host
+read a bounce, stays on the host.
 """
 from __future__ import annotations
 
@@ -119,8 +124,9 @@ def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
 
 class BounceState(NamedTuple):
     """The lanes of a batch between two bounces of `trace`: their state,
-    their index in the caller's order (`src`), their RNG keys, and the
-    bounce about to be traced (an int, or a 0-d int64 tensor in a graph)."""
+    their index in the caller's order (`src`), their RNG keys, the bounce
+    about to be traced and the seed (each an int, or a 0-d int64 tensor
+    in a graph, so that one graph serves every bounce and seed)."""
     org: torch.Tensor
     dirn: torch.Tensor
     throughput: torch.Tensor
@@ -130,12 +136,13 @@ class BounceState(NamedTuple):
     pixel: torch.Tensor
     sample: torch.Tensor
     depth: object
+    seed: object
 
 
 def _sort_lanes(s: BounceState) -> BounceState:
     """The lanes in the stable order of `_compaction_key` (dead last)."""
     perm = torch.sort(_compaction_key(s.org, s.dirn, s.alive), stable=True).indices
-    return BounceState(*(x[perm] for x in s[:-1]), depth=s.depth)
+    return BounceState(*(x[perm] for x in s[:-2]), depth=s.depth, seed=s.seed)
 
 
 def _shade_bounce(pack, static, light_bias, org, dirn, throughput, radiance, alive, hit, ctx):
@@ -152,20 +159,20 @@ def _shade_bounce(pack, static, light_bias, org, dirn, throughput, radiance, ali
     return new_org, new_dir, throughput, radiance, alive
 
 
-def bounce_step(static, light_bias: float, seed, compact: bool, kernel: str):
+def bounce_step(static, light_bias: float, compact: bool, kernel: str):
     """`step(pack, s: BounceState) -> BounceState`: one bounce of the
     non-differentiable trace (the compaction sort, the closest hit, the
-    shading), a pure function of the pack and the lanes, so that
-    graphs.GraphedStep can replay it."""
+    shading), a pure function of the pack and the lanes (their seed
+    included), so that graphs.GraphedStep can replay it."""
 
     def step(pack, s: BounceState) -> BounceState:
         if compact:
             s = _sort_lanes(s)
-        ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=s.depth, seed=seed)
+        ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=s.depth, seed=s.seed)
         hit = isect.intersect(pack, s.org, s.dirn, T_MIN, ctx, alive=s.alive, kernel=kernel)
         lanes = _shade_bounce(pack, static, light_bias, *s[:5], hit, ctx)
         return BounceState(*lanes, src=s.src, pixel=s.pixel, sample=s.sample,
-                           depth=s.depth + 1)
+                           depth=s.depth + 1, seed=s.seed)
 
     return step
 
@@ -187,15 +194,18 @@ def trace(pack, static, org, dirn, rng_ctx, max_depth: int, light_bias: float,
     no lane is alive (one host read a bounce), under torch.no_grad().
     With a `graph_cache` (a dict the caller owns, as a Renderer does) and
     on the card (where graphs.applies), each bounce is one replay of a CUDA
-    graph of `bounce_step`, its bounce index a 0-d device tensor that the
-    graph advances; the graph stays in the cache for later calls with the
-    same pack, static tables, lane count, kernel, light_bias, seed and
-    compact.  Without one the bounces run eagerly.
+    graph of `bounce_step`, its bounce index and seed 0-d device tensors
+    (the graph advances the bounce); the graph stays in the cache for
+    later calls with the same pack, static tables, lane count, kernel,
+    light_bias and compact, at any seed (graphs.cached keeps the newest
+    bounce graph).  Without one the bounces run eagerly.
     differentiable=True: all max_depth bounces, differentiable in the
-    pack's float tables (ScenePack.with_grad); `remat` trades backward
-    recompute for saved activations, with the same forward values and the
-    same gradients up to the order in which autograd sums a table's
-    contributions from different bounces:
+    pack's float tables (ScenePack.with_grad), with no host read: run
+    eagerly here, or captured whole with the caller's loss and backward
+    pass by graphs.GraphedGrad (the seed a 0-d device tensor); `remat`
+    trades backward recompute for saved activations, with the same forward
+    values and the same gradients up to the order in which autograd sums a
+    table's contributions from different bounces:
       "none" — save every bounce's activations;
       "hits" — the traversal runs outside torch.utils.checkpoint and the
                rest of the bounce inside it, with the hits as inputs: the
@@ -216,14 +226,15 @@ def trace(pack, static, org, dirn, rng_ctx, max_depth: int, light_bias: float,
         radiance=torch.zeros((n, 3), dtype=org.dtype, device=dev),
         alive=torch.ones((n,), dtype=torch.bool, device=dev),
         src=torch.arange(n, device=dev),
-        pixel=vrng.as_u32(rng_ctx.pixel), sample=vrng.as_u32(rng_ctx.sample), depth=0)
+        pixel=vrng.as_u32(rng_ctx.pixel), sample=vrng.as_u32(rng_ctx.sample), depth=0,
+        seed=rng_ctx.seed)
     if differentiable:
-        s, bounces = _trace_differentiable(pack, static, s, rng_ctx.seed, max_depth,
-                                           light_bias, compact, kernel, remat)
+        s, bounces = _trace_differentiable(pack, static, s, max_depth, light_bias, compact,
+                                           kernel, remat)
     else:
         with torch.no_grad():
-            s, bounces = _trace_bounces(pack, static, s, rng_ctx.seed, max_depth, light_bias,
-                                        compact, kernel, graph_cache)
+            s, bounces = _trace_bounces(pack, static, s, max_depth, light_bias, compact,
+                                        kernel, graph_cache)
     if stats is not None:
         stats["bounces"] = bounces
     if compact:
@@ -238,14 +249,15 @@ def _check_nans(depth, s: BounceState):
                               throughput=s.throughput, radiance=s.radiance)
 
 
-def _trace_bounces(pack, static, s, seed, max_depth, light_bias, compact, kernel,
-                   graph_cache):
-    step = fn = bounce_step(static, light_bias, seed, compact, kernel)
+def _trace_bounces(pack, static, s, max_depth, light_bias, compact, kernel, graph_cache):
+    step = fn = bounce_step(static, light_bias, compact, kernel)
     if graph_cache is not None and graphs.applies(s.org.device, kernel, pack):
         step = graphs.cached(graph_cache, (static,),
-                             ("bounce", kernel, float(light_bias), seed, compact),
+                             ("bounce", kernel, float(light_bias), compact),
                              lambda: graphs.GraphedStep(fn))
-        s = s._replace(depth=torch.zeros((), dtype=torch.int64, device=s.org.device))
+        dev = s.org.device
+        s = s._replace(depth=torch.zeros((), dtype=torch.int64, device=dev),
+                       seed=torch.as_tensor(s.seed, dtype=torch.int64).to(dev))
     bounces = 0
     for depth in range(max_depth):
         if not bool(s.alive.any()):
@@ -256,7 +268,7 @@ def _trace_bounces(pack, static, s, seed, max_depth, light_bias, compact, kernel
     return s, bounces
 
 
-def _trace_differentiable(pack, static, s, seed, max_depth, light_bias, compact, kernel,
+def _trace_differentiable(pack, static, s, max_depth, light_bias, compact, kernel,
                           remat):
     def shade_bounce(*args):
         return _shade_bounce(pack, static, light_bias, *args)
@@ -268,7 +280,7 @@ def _trace_differentiable(pack, static, s, seed, max_depth, light_bias, compact,
     for depth in range(max_depth):
         if compact:
             s = _sort_lanes(s)
-        ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=depth, seed=seed)
+        ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=depth, seed=s.seed)
         state = tuple(s[:5])
         if remat == "full":
             # the counter-based RNG draws no torch random numbers: nothing
@@ -282,6 +294,7 @@ def _trace_differentiable(pack, static, s, seed, max_depth, light_bias, compact,
                                       preserve_rng_state=False)
             else:
                 out = shade_bounce(*state, hit, ctx)
-        s = BounceState(*out, src=s.src, pixel=s.pixel, sample=s.sample, depth=depth + 1)
+        s = BounceState(*out, src=s.src, pixel=s.pixel, sample=s.sample, depth=depth + 1,
+                        seed=s.seed)
         _check_nans(depth, s)
     return s, max_depth

@@ -10,8 +10,11 @@ Because the RNG is keyed by (pixel, sample, bounce), the two schedules
 trace the same paths; they differ only in the order of each pixel's sum.
 With a `mesh` (parallel/mesh.py) both schedules shard their lanes over it.
 On the card the pool step and the batch bounce replay CUDA graphs
-(render/graphs.py); the Renderer keeps them, so a later render with the
-same camera, spp, seed, kernel and mesh replays what the first captured.
+(render/graphs.py); the Renderer keeps the newest of each (graphs.cached),
+so a later render replays what an earlier one captured: the batch bounce's
+graph at any seed (the seed is a 0-d device tensor in its state), the pool
+step's with the same camera, spp, seed, kernel and mesh (the seed is a
+constant of the step, as in the reference's jitted pool step).
 """
 from __future__ import annotations
 

@@ -117,7 +117,7 @@ def work(pack, static, cam, dev, mesh, lanes, batch, grad):
 
     step = pmesh.train_step_fn(
         lambda *a: batch_fn(*a, differentiable=True, kernel="threaded"),
-        lambda r, t: (r ** 2).mean(), mesh)
+        lambda r, t: (r ** 2).mean(), mesh, kernel="threaded")
     threaded.launches = 0
     barrier()
     t0 = time.perf_counter()

@@ -174,7 +174,7 @@ def test_step_is_capture_safe(built, monkeypatch, scene, kernel, what):
         step = tpool.make_step(pack, static, cam, n_pixels * SPP, SPP, 0, kernel=kernel)
         state = tpool.init_state(LANES, n_pixels, "cpu")
     else:
-        step = tintegrator.bounce_step(static, cam.light_bias, 0, True, kernel)
+        step = tintegrator.bounce_step(static, cam.light_bias, True, kernel)
         state = bounce_start(cam, LANES)
     for _ in range(3):
         state = step(pack, state)
@@ -326,7 +326,7 @@ def bounce_start(cam, n, seed=0):
     return tintegrator.BounceState(
         org=org, dirn=dirn, throughput=torch.ones((n, 3)), radiance=torch.zeros((n, 3)),
         alive=torch.ones((n,), dtype=torch.bool), src=torch.arange(n),
-        pixel=trng.as_u32(ctx.pixel), sample=trng.as_u32(ctx.sample), depth=0)
+        pixel=trng.as_u32(ctx.pixel), sample=trng.as_u32(ctx.sample), depth=0, seed=seed)
 
 
 @pytest.mark.parametrize("kernel", ["threaded", "wavefront"])
