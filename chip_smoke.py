@@ -75,26 +75,44 @@ and load times).  The kernels line gives each kernel's launches on these
 sharded paths (`sharded_launches`).
 
 Then the CUDA graphs (render/graphs.py; phase 25): on the card every pool
-render and batch render above replays a captured graph a step (a bounce),
-and the phases that hook a step's Python (the recorded steps, the fog
-render's volume count) or check STEP_LAUNCHES run the eager step.  Phase
-25 steps the main path's BVH8 and wavefront pools eagerly and graphed from
-one start, in turns, 20 steps each (lane state bit-equal, accumulator
-within float order, the graphed steps' kernel launches = steps); renders
-the main path both ways in turns (eager, graphed with its capture,
-graphed, eager): rates, wall ms/step, the graph's nodes a step read from
-libcuda beside STEP_LAUNCHES, capture seconds, peak memory, images
-within float order; splits a steady step's device time both ways; and
-traces one LANES-lane batch through the graphed and the eager bounce
-(per-lane radiance bit-equal) and the batch render both ways.  Phase 26
-runs the fwd+bwd step eagerly and graphed in turns at seeds 1-3 for remat
-"none", "hits" and "full" through K3 and K1 (loss bit-equal, gradients
-within the eager-vs-eager gap and 1e-5, one capture for the three seeds,
-launches = replays x 20, x 40 under "full"), with its wall and device busy
-ms, nodes and memory.  Phase 27 renders (pool and batch) at k = 1, 2, 4
-seeds with the Renderer's graph cache as it stood before its bound and as
-it is, for "auto" and "wavefront", and prints the device memory after
-each k: the bounded cache's must not grow.
+render above replays a captured graph a step, and the phases that hook a
+step's Python (the recorded steps, the fog render's volume count) or check
+STEP_LAUNCHES run the eager step.  Phase 25 steps the main path's BVH8 and
+wavefront pools eagerly and graphed from one start, in turns, 20 steps
+each (lane state bit-equal, accumulator within float order, the graphed
+steps' kernel launches = steps); renders the main path both ways in turns
+(eager, graphed with its capture, graphed, eager): rates, wall ms/step,
+the graph's nodes a step read from libcuda beside STEP_LAUNCHES, capture
+seconds, peak memory, images within float order; and splits a steady
+step's device time both ways.  Phase 26 runs the fwd+bwd step eagerly and
+graphed in turns at seeds 1-3 for remat "none", "hits" and "full" through
+K3 and K1 (loss bit-equal, gradients within the eager-vs-eager gap and
+1e-5, one capture for the three seeds, launches = replays x 20, x 40 under
+"full"), with its wall and device busy ms, nodes and memory.  Phase 27
+renders (pool and batch) at k = 1, 2, 4 seeds with the Renderer's graph
+cache as it stood before its bound and as it is, for "auto" and
+"wavefront", and prints the device memory after each k: the bounded
+cache's must not grow.
+
+Since phase 28's slice a batch of the batch render (phases 15, 23, 27,
+28) is one launch of a graph holding the whole batch program: lane ids,
+camera rays, a conditional WHILE node over the bounce with its stop test
+on the card (csrc/loop_cond.cu), the scatter back
+(render/renderer.py:BatchProgram, render/graphs.py:LoopGraph); the host
+sums batch i while batch i + 1 runs.  Phase 15 profiles the batch render
+eagerly (the profiler records one pass of a conditional node's body a
+launch).  Phase 28 holds one LANES-lane batch of the program against the
+eager trace (radiance bit-equal, the device bounce counter = the eager
+bounces = K3 launches, and one K3 kernel node in the loop body, read
+from libcuda, so that the graph's K3 launches are its bounces) with its
+build seconds, graph nodes and peak memory; loop_cond's flag against its plain version at every bounce, both
+timed; the cornell_dragon batch render eager and graphed in turns
+(images bit-equal, rates, one loop graph launch and one event wait a
+batch, no other host sync under torch's sync debug mode, the host's
+launch, wait and float64-sum seconds, the device's time by CUDA events
+around each batch's graph launch in the timed render, and the idle share
+that time leaves in its wall); and a card under an open sky,
+whose paths all end by their second bounce, both ways.
 
 K1 and K3 test a leaf with the whole warp (rust_raytracer_torch/csrc/
 traverse_common.cuh:warp_leaf_test).  Beside each of
@@ -103,7 +121,7 @@ walks in torch ops (warps of 32 lanes in ray order): leaf visits, the warp
 leaf passes a per-thread 128-slot leaf loop would run and the share of
 lanes busy in them, the warps' loop iterations, and the cooperative
 test's equivalent (leaf visits x 4 / 128 passes).  Phase 1 prints K1's,
-K3's, K2a's (standalone and fused with K2b) and K2c's registers, local
+K3's, K2a's (standalone and fused with K2b), K2c's and loop_cond's registers, local
 (stack and spill) bytes and shared bytes as the loaded module reports
 them (cudaFuncGetAttributes), the SASS instructions a test in K2a's (both
 kernels) and K2c's inner loops (cuobjdump, where the toolkit has it), and
@@ -481,13 +499,14 @@ def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None, graph
     return n_launch, wall_ms, dev_ms
 
 
-def device_split(tag, fn, card, names, absent=()):
+def device_split(tag, fn, card, names, absent=(), required=True):
     """Run `fn` once under the profiler: its device busy time, and the
     device time and launches of each traversal kernel (`names`: its
     `__global__` name less `_kernel`, matched whole) over the whole call;
-    raises if one of `names` did not run or one of `absent` did.  Returns
-    {name: (ms, launches)}, and under "busy" (device busy ms, profiled wall
-    ms)."""
+    raises if one of `names` was not seen (unless not `required`: the
+    profiler's record of a conditional graph node's body is partial) or
+    one of `absent` ran.  Returns {name: (ms, launches)}, and under "busy"
+    (device busy ms, profiled wall ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -503,7 +522,7 @@ def device_split(tag, fn, card, names, absent=()):
                     if is_kernel(e.key, nm + "_kernel")) / 1e3,
                 sum(e.count for e in kernels if is_kernel(e.key, nm + "_kernel")))
            for nm in names}
-    if any(n == 0 for _, n in own.values()):
+    if required and any(n == 0 for _, n in own.values()):
         raise AssertionError(f"device split {tag}: a traversal kernel was not seen: {own}")
     ran = [nm for nm in absent if any(is_kernel(e.key, nm + "_kernel") for e in kernels)]
     if ran:
@@ -1763,7 +1782,7 @@ def mesh_phase(renderer, wf_renderer, b_renderer, camera, wf_overflow, dev, card
     the 1-shard ones after normalisation, rtol 1e-5).
     Returns the launches of each kernel on these sharded paths."""
     from rust_raytracer_torch.core import rng as vrng
-    from rust_raytracer_torch.ops import bvh8, threaded
+    from rust_raytracer_torch.ops import bvh8, loop_cond, threaded
     from rust_raytracer_torch.ops import wavefront as wf
     from rust_raytracer_torch.parallel import mesh as pmesh
     from rust_raytracer_torch.render import graphs, integrator
@@ -1816,14 +1835,17 @@ def mesh_phase(renderer, wf_renderer, b_renderer, camera, wf_overflow, dev, card
     for n, mesh in ((1, one), (2, two)):
         reset()
         b_renderer.mesh = mesh
+        lc = loop_cond.launches
         t0 = time.perf_counter()
         imgs[n] = b_renderer.render(mode="batch").hdr()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches["threaded_traverse"] += threaded.launches
+        launches["loop_cond"] += loop_cond.launches - lc
         log(f"mesh batch render, K3, {n} shard(s): {total / secs:.1f} pixel-samples/s "
-            f"({secs:.3f} s), K3 launches {threaded.launches} ({card})")
-        if not (threaded.launches > 0 and threaded.plain_calls == 0):
+            f"({secs:.3f} s), K3 launches {threaded.launches}, loop_cond launches "
+            f"{loop_cond.launches - lc} ({card})")
+        if not (threaded.launches == loop_cond.launches - lc > 0 and threaded.plain_calls == 0):
             raise AssertionError("the sharded batch render launched no K3 kernel")
     b_renderer.mesh = None
     agree, rel = image_agreement(imgs[2], imgs[1])
@@ -1978,6 +2000,45 @@ def graph_nodes(graph):
     return kinds
 
 
+def graph_kernel_names(graph):
+    """The kernel nodes of a captured torch.cuda.CUDAGraph (kept with
+    keep_graph=True) by the name of their function, read with libcuda's
+    cuGraphKernelNodeGetParams and cuFuncGetName (cuKernelGetName where the
+    node holds a CUkernel)."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):   # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p)] + [(f, ctypes.c_uint) for f in (
+            "grid_x", "grid_y", "grid_z", "block_x", "block_y", "block_z", "shared")] + [
+            (f, ctypes.c_void_p) for f in ("kernel_params", "extra", "kern", "ctx")]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    names = Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise AssertionError("cuGraphNodeGetType failed")
+        if kind.value != 0:
+            continue
+        params, name = KernelNodeParams(), ctypes.c_char_p()
+        err = cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params))
+        if err == 0:
+            err = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func))
+                   if params.func else
+                   cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)))
+        if err != 0:
+            raise AssertionError(f"reading a kernel node's function: CUDA error {err}")
+        names[name.value.decode()] += 1
+    return names
+
+
 def the_capture(step):
     """The one capture of a graphed step (render/graphs.py:GraphedStep)."""
     (cap,) = step.captures.values()
@@ -2085,71 +2146,16 @@ def graph_render_pair(r, kernel, camera, dev, card, names):
     return out
 
 
-def graph_batch(b_renderer, camera, dev, card):
-    """One LANES-lane batch of the batch render through the graphed bounce
-    and eagerly: per-lane radiance bit-equal, K3 launches equal to the
-    bounces; then the whole batch render both ways, in turns (eager,
-    graphed, graphed, eager), its rate each way and its images."""
-    from rust_raytracer_torch.ops import threaded
-    from rust_raytracer_torch.render.renderer import BatchMetrics
-
-    w = camera.image_width
-    lane = torch.arange(LANES, device=dev) + (camera.image_height // 3) * w
-    px, py, smp = lane % w, lane // w, torch.zeros_like(lane)
-    rad = {}
-    for mode in (False, True):
-        b_renderer.graph = mode
-        stats = {}
-        k3 = threaded.launches
-        rad[mode] = b_renderer.trace_batch(px, py, smp, stats)
-        if threaded.launches - k3 != stats["bounces"]:
-            raise AssertionError(f"batch: K3 launches {threaded.launches - k3}, bounces "
-                                 f"{stats['bounces']}")
-    torch.cuda.synchronize()
-    differ = int((rad[True] != rad[False]).any(dim=1).sum())
-    log(f"graph batch: one {LANES}-lane batch, {stats['bounces']} bounces: {differ} lanes' "
-        f"radiance not bit-equal between the graphed and the eager bounce; K3 launches = "
-        f"bounces both ways ({card})")
-    if differ:
-        raise AssertionError("the graphed batch bounce differs from the eager one")
-    total = camera.image_width * camera.image_height * SPP
-    secs, imgs = {False: [], True: []}, {}
-    for mode in (False, True, True, False):
-        b_renderer.graph = mode
-        m = BatchMetrics()
-        k3 = threaded.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        imgs[mode] = b_renderer.render(mode="batch", metrics=m).hdr()
-        torch.cuda.synchronize()
-        secs[mode].append(time.perf_counter() - t0)
-        if threaded.launches - k3 != m.bounces:
-            raise AssertionError(f"batch render: K3 launches {threaded.launches - k3}, "
-                                 f"bounces {m.bounces}")
-    b_renderer.graph = True
-    n_diff = int((imgs[True] != imgs[False]).any(axis=-1).sum())
-    e_s, g_s = np.mean(secs[False]), secs[True][1]
-    log(f"graph batch render: cornell_dragon {W}x{camera.image_height}@{SPP}spp depth {DEPTH}, "
-        f"batches of {LANES}: eager {total / e_s:.1f} pixel-samples/s ({e_s:.3f} s, mean of 2), "
-        f"graphed {total / g_s:.1f} ({g_s:.3f} s; the first graphed render "
-        f"{secs[True][0]:.3f} s), {m.bounces} bounces, K3 launches = bounces; {n_diff} pixels "
-        f"not bit-equal ({card})")
-    if n_diff:
-        raise AssertionError("the graphed batch render differs from the eager one")
-    return {"eager_rate": total / e_s, "graphed_rate": total / g_s}
-
-
-def graph_phase(renderer, wf_renderer, b_renderer, camera, dev, card):
-    """Phase 25: the pool step and the batch bounce as CUDA graphs
-    (render/graphs.py) against the eager ones on the card.  The eager
-    step's device split is phases 7 and 12's."""
+def graph_phase(renderer, wf_renderer, camera, dev, card):
+    """Phase 25: the pool step as a CUDA graph (render/graphs.py) against
+    the eager step on the card.  The eager step's device split is phases 7
+    and 12's; the batch render's graph is phase 28's."""
     out = {}
     for kernel, r, names in (("auto", renderer, ("bvh8_traverse",)),
                              ("wavefront", wf_renderer, ("wf_cull_compact", "wf_mt"))):
         lane_state_parity(r, kernel, camera, dev, card, names)
         out[kernel] = graph_render_pair(r, kernel, camera, dev, card, names)
         out[kernel]["split"] = step_split(r, camera, card, names, graph=True)
-    out["batch"] = graph_batch(b_renderer, camera, dev, card)
     return out
 
 
@@ -2340,6 +2346,278 @@ def cache_memory(scene, camera, dev, card):
     return out
 
 
+# ---------------------------------------------------------------- the batch program
+
+# loop_cond_kernel: any_alive (1 byte), depth (8) and the bounce counter (8)
+# read, the flag (1) and the counter (8) written; a compare, an and, an add
+LOOP_COND_BYTES, LOOP_COND_OPS = 26, 3
+
+
+def sky_card_scene(g):
+    """A diffuse two-triangle card facing the camera under an open sky
+    (tests/test_torch_batch_program.py:sky_scene): every path ends by its
+    second bounce, long before max_depth."""
+    corners = np.array([[-0.3, -0.3, 0.0], [0.3, -0.3, 0.0], [0.3, 0.3, 0.0], [-0.3, 0.3, 0.0]])
+    tris = np.zeros((2, 3, 3), np.int32)
+    tris[:, :, 0] = [[0, 1, 2], [0, 2, 3]]
+    tris[:, :, 2] = -1
+    card = g.Mesh(corners, np.array([[0.0, 0.0, 1.0]]), np.zeros((0, 2)), tris,
+                  g.Lambertian(g.Constant((0.2, 0.7, 0.2))))
+    sky = g.Sky(g.Constant((0.5, 0.7, 1.0)))
+    return g.SceneDef(world=g.Group([card, sky]), lights=[sky], config={})
+
+
+@contextlib.contextmanager
+def calls_counted(cls, name, counter, key):
+    """Count the calls of method `cls.name` into counter[key] meanwhile."""
+    real = getattr(cls, name)
+
+    def counted(self, *a, **k):
+        counter[key] += 1
+        return real(self, *a, **k)
+
+    setattr(cls, name, counted)
+    try:
+        yield
+    finally:
+        setattr(cls, name, real)
+
+
+@contextlib.contextmanager
+def launches_timed(times):
+    """Record a pair of CUDA events on the current stream around each
+    graphs.LoopGraph launch meanwhile; append the pairs to `times`.  A
+    start event is reached when the stream reaches the launch (after the
+    batch before it), so a pair times one batch's graph on the device
+    without a host wait."""
+    from rust_raytracer_torch.render import graphs
+
+    real = graphs.LoopGraph.launch
+
+    def timed(self):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        real(self)
+        t1.record()
+        times.append((t0, t1))
+
+    graphs.LoopGraph.launch = timed
+    try:
+        yield
+    finally:
+        graphs.LoopGraph.launch = real
+
+
+def batch_renders(r, tag, card):
+    """`r`'s whole batch render eager and graphed in turns (eager, graphed,
+    graphed, eager): images bit-equal, K3 launches = bounces each time, and
+    on the graphed renders the loop_cond launches = bounces, one loop graph
+    launch and one event wait a batch a shard, and no other host sync (the
+    second graphed render runs under torch.cuda.set_sync_debug_mode("warn"):
+    each synchronising op would warn).  On that render CUDA events around
+    each batch's graph launch give the device's time, and its idle share
+    of the wall.  Returns a dict of the numbers (the host split from
+    BatchMetrics, of the second graphed render)."""
+    import warnings
+
+    from rust_raytracer_torch.render import graphs
+    from rust_raytracer_torch.render import renderer as rmod
+
+    total = r.camera.image_width * r.camera.image_height * SPP
+    secs, imgs, out = {False: [], True: []}, {}, {}
+    for k, mode in enumerate((False, True, True, False)):
+        r.graph = mode
+        m = rmod.BatchMetrics()
+        calls = Counter()
+        events = []
+        before = graphs.launch_counts()
+        torch.cuda.synchronize()
+        with launches_timed(events), \
+                calls_counted(graphs.LoopGraph, "launch", calls, "launch"), \
+                calls_counted(rmod.BatchRun, "wait", calls, "wait"), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if k == 2:
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                imgs[mode] = r.render(mode="batch", metrics=m).hdr()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        secs[mode].append(time.perf_counter() - t0)
+        launched = {n: v - before[n] for n, v in graphs.launch_counts().items() if v != before[n]}
+        want = {"threaded_traverse": m.bounces}
+        if mode:
+            want["loop_cond"] = m.bounces
+        if launched != want:
+            raise AssertionError(f"{tag}: launches {launched}, bounces {m.bounces}")
+        if k == 2:
+            syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+            shards = 1 if r.mesh is None else r.mesh.n_local
+            out.update(metrics=m, syncs=len(syncs), launches=calls["launch"],
+                       waits=calls["wait"], shards=shards,
+                       batch_ms=[a.elapsed_time(b) for a, b in events])
+            if syncs or calls["launch"] != m.batches * shards or calls["wait"] != m.batches:
+                raise AssertionError(f"{tag}: {calls['launch']} loop graph launches and "
+                                     f"{calls['wait']} waits in {m.batches} batches on {shards} "
+                                     f"shard(s); host syncs besides: {syncs[:3]}")
+    r.graph = True
+    n_diff = int((imgs[True] != imgs[False]).any(axis=-1).sum())
+    e_s, g_s = float(np.mean(secs[False])), secs[True][1]
+    m = out["metrics"]
+    device_ms = sum(out["batch_ms"])
+    out.update(eager_s=e_s, graphed_s=g_s, first_graphed_s=secs[True][0],
+               eager_rate=total / e_s, graphed_rate=total / g_s, n_diff=n_diff,
+               batches=m.batches, bounces=m.bounces, img=imgs[True], device_ms=device_ms,
+               idle=1 - device_ms / (g_s * 1e3))
+    log(f"{tag}: eager {out['eager_rate']:.1f} pixel-samples/s ({e_s:.3f} s, mean of 2), "
+        f"graphed {out['graphed_rate']:.1f} ({g_s:.3f} s; the first graphed render "
+        f"{secs[True][0]:.3f} s with its capture), {m.batches} batches, {m.bounces} bounces "
+        f"({m.bounces / m.batches:.2f} a batch), K3 and loop_cond launches = bounces; a graphed "
+        f"batch: {out['launches'] / m.batches:.0f} loop graph launch(es), "
+        f"{out['waits'] / m.batches:.0f} event wait, {out['syncs']} other host syncs; host "
+        f"{(m.launch_s + m.wait_s + m.sum_s) * 1e3:.1f} ms: launch (start fill, graph launch, "
+        f"copies home) {m.launch_s * 1e3:.1f}, wait {m.wait_s * 1e3:.1f}, f64 sum {m.sum_s * 1e3:.1f}; "
+        f"device {device_ms:.1f} ms (CUDA events around each batch's graph launch in that "
+        f"render: {', '.join(f'{x:.2f}' for x in out['batch_ms'])} ms), idle share "
+        f"{out['idle']:.1%} of its wall; {n_diff} pixels not bit-equal ({card})")
+    if n_diff:
+        raise AssertionError(f"{tag}: the graphed batch render differs from the eager one")
+    return out
+
+
+def batch_program_phase(b_renderer, camera, dev, card, eager_busy_ms):
+    """Phase 28: a batch of the batch render as one graph launch
+    (render/renderer.py:BatchProgram, render/graphs.py:LoopGraph, the stop
+    test csrc/loop_cond.cu).  One LANES-lane batch through the program
+    against the eager trace (radiance bit-equal, the device bounce counter
+    = the eager bounces = K3 launches), the capture's seconds, graph nodes
+    and peak memory; loop_cond's flag against its plain version at every
+    bounce, and both timed; the whole cornell_dragon batch render eager
+    and graphed in turns (`batch_renders`: the graphed render's device time
+    by CUDA events around each batch's launch, and its idle share); the
+    graphed render as the profiler records it, beside the eager render's
+    profiled kernel time (`eager_busy_ms`, phase 15's); the sky-card scene, whose paths all end by their
+    second bounce, both ways.  Returns the numbers for the kernels line."""
+    from rust_raytracer_torch.ops import loop_cond, threaded
+    from rust_raytracer_torch.render import graphs, integrator
+    from rust_raytracer_torch.render.camera import Camera
+    from rust_raytracer_torch.render.renderer import BatchProgram, Renderer
+    from rust_raytracer_torch.scene import graph as g
+
+    w, h = camera.image_width, camera.image_height
+    total = w * h * SPP
+    start = (h // 3) * w * SPP
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prog = BatchProgram(b_renderer.pack, b_renderer.static, camera, LANES, 0, total, SPP,
+                        "threaded")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    nodes = [dict(graph_nodes(c)) for c in prog.loop.captures]
+    k3_nodes = [sum(v for name, v in graph_kernel_names(c).items()
+                    if is_kernel(name, "threaded_traverse_kernel"))
+                for c in prog.loop.captures]
+    prog.start.fill_(start)
+    prog.seed.fill_(b_renderer.seed)
+    before = graphs.launch_counts()
+    prog.run()
+    bounces = int(prog.bounces)
+    prog.loop.count(bounces)
+    launched = {n: v - before[n] for n, v in graphs.launch_counts().items() if v != before[n]}
+    got = prog.out.clone()
+    b_renderer.graph = False
+    first = torch.full((), start, dtype=torch.int64, device=dev)
+    _, px, py, smp = integrator.batch_lanes(first, LANES, total, SPP, w)
+    stats = {}
+    k3 = threaded.launches
+    want = b_renderer.trace_batch(px, py, smp, stats)
+    k3_eager = threaded.launches - k3
+    b_renderer.graph = True
+    differ = int((got != want).any(dim=1).sum())
+    batch_ms = time_ms(prog.run, 5)
+    log(f"batch program: one {LANES}-lane batch from lane {start}: {differ} lanes' radiance not "
+        f"bit-equal to the eager trace; device bounce counter {bounces}, eager bounces "
+        f"{stats['bounces']}, K3 launches {launched.get('threaded_traverse')} (eager "
+        f"{k3_eager}), loop_cond launches {launched.get('loop_cond')}; one launch "
+        f"{batch_ms:.3f} ms (CUDA events, mean of 5); build (warm-up, 3 captures, conditional "
+        f"graph, instantiate) {prog.loop.seconds:.3f} s, peak memory {peak / 2**20:.1f} MiB "
+        f"above its start, held {held / 2**20:.1f} MiB; graph nodes: prologue {nodes[0]}, "
+        f"body {nodes[1]} (run once a bounce), epilogue {nodes[2]}; threaded_traverse_kernel "
+        f"nodes (prologue, body, epilogue) {tuple(k3_nodes)}, so the graph's K3 launches = "
+        f"its bounces ({card})")
+    if differ or not (bounces == stats["bounces"] == k3_eager
+                      == launched.get("threaded_traverse") == launched.get("loop_cond") > 0):
+        raise AssertionError("the batch program differs from the eager trace")
+    if k3_nodes != [0, 1, 0]:
+        raise AssertionError(f"threaded_traverse_kernel nodes {k3_nodes}, want one in the body")
+
+    # loop_cond against its plain version at every bounce: the stages run
+    # eagerly on the card, the kernel launched alone after each body
+    flags = []
+    with torch.no_grad():
+        prog.prologue()
+        while True:
+            prog.body()
+            plain = loop_cond.flag_plain(prog.state.alive, prog.state.depth, DEPTH)
+            loop_cond.loop_cond(prog.any_alive, prog.state.depth, prog.flag, prog.bounces, DEPTH)
+            flags.append((int(prog.flag), int(plain)))
+            if not flags[-1][0]:
+                break
+        prog.epilogue()
+    mismatch = sum(f != p for f, p in flags)
+    same = torch.equal(prog.out, got)
+    cond_args = (prog.any_alive, prog.state.depth, prog.flag, prog.bounces, DEPTH)
+    lc_ms = time_ms(lambda: loop_cond.loop_cond(*cond_args), 1000)
+    lc_plain_ms = time_ms(lambda: loop_cond.flag_plain(prog.any_alive, prog.state.depth, DEPTH),
+                          1000)
+    lc_bound = bound(LOOP_COND_OPS, LOOP_COND_BYTES)
+    log(f"loop_cond: flag vs plain alive.any() & (depth < {DEPTH}) at each of {len(flags)} "
+        f"bounces: {mismatch} differ; eager stages + kernel radiance equal to the graph's: "
+        f"{same}; kernel {lc_ms * 1e3:.2f} us a launch, plain {lc_plain_ms * 1e3:.2f} us "
+        f"(CUDA events, mean of 1000), bound {lc_bound[0] * 1e6:.3f} ns by {lc_bound[1]} "
+        f"({card})")
+    if mismatch or len(flags) != bounces or not same:
+        raise AssertionError("loop_cond disagrees with its plain version")
+    del prog, got, want
+
+    out = {"loop_cond": dict(max_abs_err=float(mismatch), ms=lc_ms, plain_ms=lc_plain_ms,
+                             bound=lc_bound)}
+    out["dragon"] = d = batch_renders(b_renderer, f"batch program render: cornell_dragon "
+                                      f"{W}x{h}@{SPP}spp depth {DEPTH}, batches of {LANES}", card)
+    # the profiler sees none, some or all of the body's launches (PERF.md
+    # §7): a reading, not a check; the graph's K3 node count and bounce
+    # counter above are the check
+    seen = device_split("batch program render, graphed, as the profiler records it",
+                        lambda: b_renderer.render(mode="batch"), card,
+                        ("threaded_traverse", "loop_cond"), required=False)
+    log(f"batch program render: idle share {d['idle']:.1%} (device {d['device_ms']:.1f} ms by "
+        f"CUDA events around each batch's graph launch, over the graphed render's wall "
+        f"{d['graphed_s'] * 1e3:.1f} ms); eager render's profiled kernel time "
+        f"{eager_busy_ms:.1f} ms (phase 15); profiled graphed render: "
+        f"{seen['threaded_traverse'][1]} K3 and {seen['loop_cond'][1]} loop_cond launches seen "
+        f"of {d['bounces']}, device busy {seen['busy'][0]:.1f} ms by the profiler's count in "
+        f"{seen['busy'][1]:.1f} ms profiled wall; host per "
+        f"batch: launch {d['metrics'].launch_s * 1e3 / d['batches']:.2f} ms, wait "
+        f"{d['metrics'].wait_s * 1e3 / d['batches']:.2f} ms, f64 sum "
+        f"{d['metrics'].sum_s * 1e3 / d['batches']:.2f} ms ({card})")
+    d.update(busy_ms=eager_busy_ms, profiled_busy_ms=seen["busy"][0])
+
+    sky_cam = Camera(image_width=W, aspect_ratio=1.0, samples_per_pixel=SPP, max_depth=DEPTH,
+                     position=(0.0, 0.0, 1.6), look_at=(0.0, 0.0, 0.0), focal_length=35.0)
+    sky = Renderer(sky_card_scene(g), sky_cam, batch_size=LANES, kernel="threaded", device=dev)
+    out["sky"] = s = batch_renders(sky, f"batch program render, early-ending scene (a card "
+                                   f"under the sky): {W}x{W}@{SPP}spp depth {DEPTH}, batches of "
+                                   f"{LANES}", card)
+    if not s["bounces"] < s["batches"] * DEPTH or not np.isfinite(s["img"]).all():
+        raise AssertionError("the sky-card scene's paths did not end early")
+    del sky
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2348,7 +2626,7 @@ def main():
     from rust_raytracer_torch import models, native
     from rust_raytracer_torch.core import rng as vrng
     from rust_raytracer_torch.models import builtin
-    from rust_raytracer_torch.ops import bvh8, threaded
+    from rust_raytracer_torch.ops import bvh8, loop_cond, threaded
     from rust_raytracer_torch.ops import wavefront as wf
     from rust_raytracer_torch.render import integrator
     from rust_raytracer_torch.render.camera import camera_from_config
@@ -2370,7 +2648,8 @@ def main():
     lib = bvh8.build_library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, HERE)}")
     from rust_raytracer_torch.ops import _cuda
-    for name in ("bvh8_traverse", "threaded_traverse", "wf_cull", "wf_cull_compact", "wf_mt"):
+    for name in ("bvh8_traverse", "threaded_traverse", "wf_cull", "wf_cull_compact", "wf_mt",
+                 "loop_cond"):
         a = _cuda.attributes("rrt_" + name)
         log(f"{name}_kernel: {a['registers']} registers, {a['local_bytes']} local bytes "
             f"(stack frame and spills), {a['shared_bytes']} static shared bytes a thread block")
@@ -2627,14 +2906,16 @@ def main():
     b_metrics = BatchMetrics()
     torch.cuda.synchronize()
     threaded.launches = threaded.plain_calls = bvh8.launches = bvh8.plain_calls = 0
+    loop_cond.launches = loop_cond.plain_calls = 0
     for name in wf.KERNELS:
         wf.launches[name], wf.plain_calls[name] = 0, 0
     t0 = time.perf_counter()
     b_film = b_renderer.render(mode="batch", metrics=b_metrics)
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
-    k3_launches = threaded.launches
-    if not (k3_launches == b_metrics.bounces > 0 and threaded.plain_calls == 0
+    k3_launches, lc_launches = threaded.launches, loop_cond.launches
+    if not (k3_launches == b_metrics.bounces == lc_launches > 0 and threaded.plain_calls == 0
+            and loop_cond.plain_calls == 0
             and bvh8.launches == bvh8.plain_calls == 0 and not any(wf.launches.values())
             and not any(wf.plain_calls.values())):
         raise AssertionError(
@@ -2646,15 +2927,29 @@ def main():
     log(f"batch path: cornell_dragon {W}x{h}@{SPP}spp depth {DEPTH}, batches of {LANES}: "
         f"{total / batch_s:.1f} pixel-samples/s ({batch_s:.3f} s; BVH8 pool render above "
         f"{total / render_s:.1f}), {b_metrics.batches} batches, {b_metrics.bounces} bounces, "
-        f"K3 launches {k3_launches}, plain calls 0, BVH8 and wavefront launches 0 ({card})")
+        f"K3 launches {k3_launches}, loop_cond launches {lc_launches} (one graph launch a "
+        f"batch, its capture included), plain calls 0, BVH8 and wavefront launches 0 ({card})")
     agree, rel = image_agreement(b_hdr, hdr)
     log(f"batch image vs BVH8 pool image: pixel agreement {agree:.6f}, mean |d|/mean {rel:.3e}")
     if not (agree >= 0.999 and rel <= 1e-3):
         raise AssertionError("the batch render disagrees with the BVH8 pool render")
     del b_film, b_hdr
-    k3_split = {"batch render": device_split(
-        "batch render (K3)", lambda: b_renderer.render(mode="batch"), card,
-        ("threaded_traverse",))["threaded_traverse"]}
+    # profiled eagerly, the graph's kernels one by one: the profiler's
+    # record of a conditional graph node's body is not complete in every
+    # run (phase 28)
+    def eager_batch_render():
+        b_renderer.graph = False
+        try:
+            b_renderer.render(mode="batch")
+        finally:
+            b_renderer.graph = True
+
+    b_split = device_split("batch render (K3), eager", eager_batch_render, card,
+                           ("threaded_traverse",))
+    k3_split = {"batch render": b_split["threaded_traverse"]}
+    if k3_split["batch render"][1] != b_metrics.bounces:
+        raise AssertionError(f"the profiler saw {k3_split['batch render'][1]} K3 launches in "
+                             f"{b_metrics.bounces} bounces")
 
     # ---- 16. the fwd+bwd step (bench.py's bench_backward) through K3,
     # graphed (render/graphs.py:GraphedGrad): 2^15 lanes, depth 20,
@@ -2765,9 +3060,8 @@ def main():
     # ---- 24. the sharded checkpoint on the card ----
     sharded_checkpoint(renderer.pack, renderer.static, camera, dev, card)
 
-    # ---- 25. the pool step and the batch bounce as CUDA graphs against
-    # the eager ones ----
-    graph_phase(renderer, wf_renderer, b_renderer, camera, dev, card)
+    # ---- 25. the pool step as a CUDA graph against the eager step ----
+    graph_phase(renderer, wf_renderer, camera, dev, card)
 
     # ---- 26. the fwd+bwd step as one CUDA graph against the eager step ----
     grad_graph_phase(tpack, renderer.static, camera, card, kept)
@@ -2775,6 +3069,10 @@ def main():
 
     # ---- 27. the Renderer's graph cache does not grow with the seeds ----
     cache_memory(scene, camera, dev, card)
+
+    # ---- 28. a batch of the batch render as one graph launch, its bounce
+    # loop stopped on the card ----
+    program = batch_program_phase(b_renderer, camera, dev, card, b_split["busy"][0])
 
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")
@@ -2856,6 +3154,19 @@ def main():
         "render_device_ms": k3_split["batch render"][0],
         "step_device_ms": k3_split["fwd+bwd step (none)"][0],
         "sharded_launches": sharded.get("threaded_traverse", 0),
+    }, {
+        "name": "loop_cond",
+        "route": "cuda",
+        "source": "rust_raytracer_torch/csrc/loop_cond.cu",
+        "replaces": None,
+        "launches": lc_launches,
+        "max_abs_err": program["loop_cond"]["max_abs_err"],
+        "ms": program["loop_cond"]["ms"],
+        "plain_ms": program["loop_cond"]["plain_ms"],
+        "bound_ms": program["loop_cond"]["bound"][0],
+        "bound_by": program["loop_cond"]["bound"][1],
+        "library_ms": None,
+        "sharded_launches": sharded.get("loop_cond", 0),
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

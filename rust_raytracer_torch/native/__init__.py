@@ -4,9 +4,10 @@ The reference's host-side hot loops are native Rust (octree build,
 octree.rs:21-210; OBJ parse, loaders/obj.rs).  Here they are C++
 (bvh.cc / obj.cc), compiled on demand with g++ into a shared library and
 called through ctypes — no pybind11 dependency.  If the toolchain is
-unavailable the callers fall back to the NumPy implementations
-(scene/bvh_builder.py, utils/assets.py), which are correct but slower and
-(for the BVH) lower quality (Morton complete-tree vs binned SAH).
+unavailable, or RRT_NO_NATIVE is set when the library is first asked for,
+the callers fall back to the NumPy implementations (scene/bvh_builder.py,
+utils/assets.py), which are correct but slower and (for the BVH) lower
+quality (Morton complete-tree vs binned SAH).
 
 The port's copy of rust_raytracer_tpu/native/: the same sources and C
 interface, built into build/rrt_torch/_rrt_native.so at the root of the
@@ -60,6 +61,9 @@ def _load():
     with _lock:
         if _lib is not None or _lib_failed:
             return _lib
+        if os.environ.get("RRT_NO_NATIVE"):
+            _lib_failed = True
+            return None
         stale = (
             not os.path.exists(_SO_PATH)
             or any(

@@ -106,13 +106,20 @@ def _library():
     return _lib
 
 
-def function(name: str, n_ptrs: int, n_ints: int):
+def c_function(name: str, argtypes):
     """The library's C function `name` (building and loading the library
-    at first use), bound as (n_ptrs pointers, n_ints ints, stream) -> int."""
+    at first use), bound with `argtypes`, returning an int."""
     fn = getattr(_library(), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = list(argtypes)
     return fn
+
+
+def function(name: str, n_ptrs: int, n_ints: int):
+    """The library's C function `name`, bound as (n_ptrs pointers, n_ints
+    ints, stream) -> int."""
+    return c_function(name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                      + [ctypes.c_void_p])
 
 
 def attributes(name: str) -> dict:
@@ -130,10 +137,12 @@ def attributes(name: str) -> dict:
 
 
 def launch(name: str, ptrs, ints, device) -> None:
-    """Call the C function `name` on the current stream of `device`;
+    """Call the C function `name` on the current stream of `device`, with
+    `device` current (a kernel launches into the current device's context);
     raise if the launch failed."""
     fn = function(name, len(ptrs), len(ints))
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*(p.data_ptr() for p in ptrs), *ints, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(p.data_ptr() for p in ptrs), *ints, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")

@@ -43,6 +43,9 @@ triangle wins at equal t, so the top k here is a stable descending sort.
 """
 from __future__ import annotations
 
+import os
+import sys
+
 import torch
 import torch.nn.functional as F
 
@@ -365,7 +368,9 @@ def intersect_triangles_wavefront(pack, org, dirn, t_min, t_max, *,
     the static T_MIN_STATIC.  With return_overflow=True also the number of
     packets that overflowed a cap, a 0-d int64 tensor on the rays' device.
     The two-level pipeline runs when nc < 2^ID_BITS and the scene has
-    supernode tables, the dense one otherwise (reference :733-795)."""
+    supernode tables, the dense one otherwise (reference :733-795).  With
+    RRT_WF_CHECK set, each call prints its overflowed packets to stderr,
+    as the reference's debug print (reference :784-788)."""
     del t_min
     n = org.shape[0]
     threaded.check_rays(org, dirn, t_max)
@@ -390,6 +395,11 @@ def intersect_triangles_wavefront(pack, org, dirn, t_min, t_max, *,
                                     o, d, tmax, cap=cap)
     t, slot = t[:n], slot[:n]
     t = torch.where(slot < 0, t_max, t)
+    if os.environ.get("RRT_WF_CHECK"):
+        # reads the device back each call: render/graphs.py:applies runs
+        # nothing graphed while it is set
+        print(f"wavefront: {int(dropped.sum())} packet(s) overflowed PAIRS_PER_PACKET_CAP "
+              "(farthest clusters dropped)", file=sys.stderr)
     if return_overflow:
         return t, slot, dropped.sum(dtype=torch.int64)
     return t, slot

@@ -162,7 +162,9 @@ def all_gather_cat(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts).to(t.device)
 
 
-def _lane_slices(mesh: Mesh, n: int):
+def lane_slices(mesh: Mesh, n: int):
+    """The slices of an n-lane batch that this process's shards trace, in
+    shard order (n a multiple of the shard count)."""
     if n % mesh.n_shards:
         raise ValueError(f"{n} lanes do not divide over {mesh.n_shards} shards")
     per = n // mesh.n_shards
@@ -180,7 +182,7 @@ def shard_batch_fn(batch_fn, mesh: Mesh):
     def sharded(pack, px, py, sample, seed):
         replica = replicas(pack)
         outs = []
-        for dev, sl in zip(mesh.devices, _lane_slices(mesh, px.shape[0])):
+        for dev, sl in zip(mesh.devices, lane_slices(mesh, px.shape[0])):
             rad = batch_fn(replica(dev), px[sl].to(dev), py[sl].to(dev),
                            sample[sl].to(dev), seed)
             outs.append(rad.to(px.device))
@@ -232,7 +234,7 @@ def train_step_fn(batch_fn, loss_of_radiance, mesh: Mesh, kernel: str = "auto",
         home = pack.device
         loss = torch.zeros((), dtype=pack.dtype, device=home)
         grads = [torch.zeros_like(getattr(pack, f)) for f in fields]
-        for dev, sl in zip(mesh.devices, _lane_slices(mesh, px.shape[0])):
+        for dev, sl in zip(mesh.devices, lane_slices(mesh, px.shape[0])):
             p = replica(pack, dev)
             lanes = (px[sl].to(dev), py[sl].to(dev), sample[sl].to(dev),
                      torch.as_tensor(seed, dtype=torch.int64).to(dev), target[sl].to(dev))

@@ -1,16 +1,19 @@
 """Steps replayed as CUDA graphs: the port's counterpart of the reference's
-compiled steps, the pool step and the batch bounce loop
-(`jax.jit(step, donate_argnums=(1,))`, rust_raytracer_tpu/render/pool.py:279
-and :292, render/renderer.py:77) and the gradient step
+compiled steps, the pool step (`jax.jit(step, donate_argnums=(1,))`,
+rust_raytracer_tpu/render/pool.py:279 and :292), the gradient step
 (`jax.jit(jax.grad(loss))`, bench.py:87; parallel/mesh.py:125's
-train_step_fn).
+train_step_fn) and the batch program with its while loop (`LoopGraph`;
+`jax.jit(batch_fn)`, render/renderer.py:77).
 
 Eagerly, a pool step or a batch bounce is ~1,700 kernel launches from
 Python and a fwd+bwd step ~57,600, and the host, not the card, sets their
 time.  `GraphedStep` captures one call of a step function into a
 `torch.cuda.CUDAGraph` and replays it: one launch a step.  `GraphedGrad`
 does the same for a loss's forward and its whole backward pass
-(`torch.autograd.grad`), one launch a gradient step.  The five traversal
+(`torch.autograd.grad`), one launch a gradient step.  `LoopGraph` puts a
+prologue, a loop body under a conditional WHILE node whose condition a
+kernel sets on the card, and an epilogue into one graph: a batch of the
+batch render, its bounce loop included, is one launch.  The five traversal
 kernels run inside the graphs as they run eagerly (ops/_cuda.py launches
 on the current stream, which is the capturing stream during a capture,
 and the autograd engine runs a backward op, a checkpoint's recompute
@@ -28,20 +31,24 @@ What stays eager: the graph runs only where it can, on a CUDA device and
 a walk that launches a traversal kernel (`applies`).  The "jnp" walk
 (torch ops that read the device back, the f64 validation walk) and the CPU
 run eagerly; so does a step under metrics.debug_nans, whose check reads
-the outputs back.  Around the graphs, the host still runs the pool's poll
-and refill reads, the batch trace's one `alive.any()` read a bounce, and a
-sharded step's slicing, copies and cross-shard sums.  A capture or replay
+the outputs back, and everything while RRT_WF_CHECK asks the wavefront
+walk to print its overflow.  Around the graphs, the host still runs the
+pool's poll and refill reads, the batch render's one wait a batch, and a
+sharded step's slicing, copies and cross-shard sums.  `integrator.trace`
+(non-differentiable, with its one `alive.any()` read a bounce) always runs
+eagerly: it is the batch program's plain version.  A capture or replay
 that fails raises; nothing carries on eagerly.
 """
 from __future__ import annotations
 
+import os
 import time
 import weakref
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from ..ops import bvh8, threaded
+from ..ops import bvh8, loop_cond, threaded
 from ..ops import intersect as isect
 from ..ops import wavefront as wf
 from ..utils import metrics as metricsmod
@@ -49,29 +56,36 @@ from ..utils import metrics as metricsmod
 
 def applies(device, kernel: str, pack) -> bool:
     """Whether a step of `pack` on `device` through the walk `kernel`
-    replays a graph: on a CUDA device, unless the walk is "jnp"."""
+    replays a graph: on a CUDA device, unless the walk is "jnp" or
+    RRT_WF_CHECK is set (its overflow print reads the device each call,
+    ops/wavefront.py)."""
     return (torch.device(device).type == "cuda"
-            and isect.resolve_kernel(kernel, pack) != "jnp")
+            and isect.resolve_kernel(kernel, pack) != "jnp"
+            and not os.environ.get("RRT_WF_CHECK"))
 
 
 def launch_counts() -> Dict[str, int]:
-    """The traversal wrappers' launch counters (ops/bvh8.py, ops/threaded.py,
-    ops/wavefront.py), by kernel name."""
+    """The kernel wrappers' launch counters (ops/bvh8.py, ops/threaded.py,
+    ops/wavefront.py, ops/loop_cond.py), by kernel name."""
     return {"bvh8_traverse": bvh8.launches, "threaded_traverse": threaded.launches,
-            **wf.launches}
+            **wf.launches, "loop_cond": loop_cond.launches}
 
 
 def _set_launches(counts: Dict[str, int]) -> None:
     bvh8.launches = counts["bvh8_traverse"]
     threaded.launches = counts["threaded_traverse"]
     wf.launches.update({k: counts[k] for k in wf.KERNELS})
+    loop_cond.launches = counts["loop_cond"]
 
 
 def cuda_capture(body: Callable[[], None], device) -> torch.cuda.CUDAGraph:
     """Capture `body` into a CUDA graph on `device` (its own memory pool),
-    instantiated, with the raw graph kept for reading its nodes."""
+    instantiated, with the raw graph kept for reading its nodes.  The
+    capture stream is a new stream of `device`: torch.cuda.graph's default
+    is one stream made on the device current at its first use, which on
+    another device's capture would leave the body's ops outside it."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.device(device), torch.cuda.graph(graph):
+    with torch.cuda.device(device), torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
         body()
     graph.instantiate()
     return graph
@@ -300,13 +314,126 @@ class GraphedGrad:
         return Capture(pack, key, inputs, graph, launched, time.perf_counter() - t0, outputs)
 
 
+class LoopGraph:
+    """`prologue(); while cond: body(); epilogue()` as one CUDA graph: the
+    port of a jitted function around a `lax.while_loop` (the reference's
+    `jax.jit(batch_fn)`, render/renderer.py:77, whose trace loops in
+    render/integrator.py:248-256).  One `launch()` runs the whole loop on
+    the card; the host reads nothing between bodies.
+
+    The stages are functions of no arguments that read and write static
+    tensors.  After each body, ops/loop_cond.py's kernel reads the 0-d
+    `any_alive` (bool) and `depth` (int64) the body wrote, writes `flag` =
+    any_alive & (depth < max_depth), adds one to `bounces`, and sets the
+    graph's conditional WHILE node from the flag.  The condition starts
+    each launch true (when max_depth > 0), so the first body always runs;
+    the prologue must leave the lanes alive at depth 0, as the eager loop's
+    first test requires.  The prologue should zero `bounces`.
+
+    Building it runs each stage once eagerly on a side stream (it builds
+    the kernel library and lazily built constants, and counts the body's
+    launches), captures each on that stream into a torch.cuda.CUDAGraph
+    (keep_graph=True, one shared memory pool: they run in capture order),
+    then assembles and instantiates prologue -> WHILE { body -> loop_cond }
+    -> epilogue with the runtime's graph API (csrc/loop_cond.cu).  Neither
+    the warm-up nor the capture moves the launch counters.  A replay does not know how
+    many bodies ran: after reading `bounces`, the caller calls `count(n)`,
+    which advances the counters by n times the body's launches and n
+    loop_cond launches.  The graph is built, instantiated and launched
+    with `any_alive`'s device current: its loop_cond node and its
+    executable belong to that device's context, as the captures do.  The
+    captures, and the tensors they address, live as long as this object;
+    the instantiated graph is destroyed with it.  A failure raises;
+    nothing runs eagerly instead.
+    """
+
+    def __init__(self, prologue: Callable[[], None], body: Callable[[], None],
+                 epilogue: Callable[[], None], any_alive, depth, flag, bounces,
+                 max_depth: int):
+        t0 = time.perf_counter()
+        dev = any_alive.device
+        counts = launch_counts()
+        try:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.no_grad(), torch.cuda.stream(side):
+                prologue()
+                before = launch_counts()
+                body()
+                after = launch_counts()
+                epilogue()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.captures, pool = [], None
+            for stage in (prologue, body, epilogue):
+                g = torch.cuda.CUDAGraph(keep_graph=True)
+                # on `side`, not torch.cuda.graph's default stream (cuda_capture)
+                with torch.no_grad(), torch.cuda.device(dev), \
+                        torch.cuda.graph(g, pool=pool, stream=side):
+                    stage()
+                pool = g.pool() if pool is None else pool
+                self.captures.append(g)
+        finally:
+            _set_launches(counts)
+        self.launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        self.launched["loop_cond"] = 1
+        self.device = dev
+        self._handles = loop_cond.build_graph(*(g.raw_cuda_graph() for g in self.captures),
+                                              any_alive, depth, flag, bounces, max_depth)
+        weakref.finalize(self, loop_cond.destroy_graph, *self._handles)
+        torch.cuda.synchronize(dev)
+        self.seconds = time.perf_counter() - t0
+
+    def launch(self) -> None:
+        """One run of the loop, on the current stream of its device."""
+        loop_cond.launch_graph(self._handles[1], self.device)
+
+    def count(self, bounces: int) -> None:
+        """Advance the launch counters by a run of `bounces` bodies."""
+        _set_launches({k: n + bounces * self.launched.get(k, 0)
+                       for k, n in launch_counts().items()})
+
+
+class PlainLoop:
+    """LoopGraph's plain form, for the CPU: the same stages run eagerly,
+    and the condition through ops/loop_cond.py's wrapper (its plain
+    version on CPU tensors), read on the host after each body.  The
+    wrappers count their own calls, so `count` does nothing."""
+
+    def __init__(self, prologue, body, epilogue, any_alive, depth, flag, bounces,
+                 max_depth: int):
+        self.stages = prologue, body, epilogue
+        self.cond = any_alive, depth, flag, bounces, max_depth
+
+    def launch(self) -> None:
+        prologue, body, epilogue = self.stages
+        flag, max_depth = self.cond[2], self.cond[4]
+        with torch.no_grad():
+            prologue()
+            go = max_depth > 0
+            while go:
+                body()
+                loop_cond.loop_cond(*self.cond)
+                go = bool(flag)
+            epilogue()
+
+    def count(self, bounces: int) -> None:
+        pass
+
+
+def loop_graph(*args, **kwargs):
+    """A LoopGraph on a CUDA device, its PlainLoop on the CPU (the arguments
+    as LoopGraph's; the device is `any_alive`'s)."""
+    cls = LoopGraph if args[3].device.type == "cuda" else PlainLoop
+    return cls(*args, **kwargs)
+
+
 def cached(cache: dict, pins: tuple, values: tuple, build: Callable):
     """cache's entry for (the objects `pins`, by identity, and the hashable
     `values`), made by `build()` at first use.  The pins are kept beside
     the entry, so their ids are not reused while it lives.  The cache holds
-    the newest entry of each kind (`values[0]`): a new entry drops the
-    older ones of its kind, and with them their graphs and memory pools,
-    before it is built."""
+    the newest entry of each kind (`values[0]`, as "pool" or "batch"): a
+    new entry drops the older ones of its kind, and with them their graphs
+    and memory pools, before it is built."""
     kind = values[0]
     key = (kind, tuple(id(p) for p in pins)) + tuple(values[1:])
     if key not in cache:

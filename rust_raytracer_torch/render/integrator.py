@@ -15,10 +15,12 @@ torch.no_grad()), and `remat` picks what the backward pass recomputes.  It
 makes no host read, so a caller can capture it with its loss and backward
 pass as one CUDA graph (render/graphs.py:GraphedGrad, as
 parallel/mesh.py:train_step_fn does on the card); called alone it runs
-eagerly.  `trace(differentiable=False)` with a graph cache replays each
-bounce as a CUDA graph on the card (graphs.GraphedStep), the counterpart
-of the reference's jitted loop; the loop over bounces, with its one host
-read a bounce, stays on the host.
+eagerly.  `trace(differentiable=False)` runs its bounces eagerly, with
+one host read a bounce: the plain version of the batch render's batch
+program (render/renderer.py:BatchProgram), which runs the same bounce
+(`bounce_step`) as one CUDA graph on the card, its loop stopping there:
+`start_state`, `batch_lanes` and `scatter_back` are the parts it shares
+with `trace`.
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ from ..ops import intersect as isect
 from ..ops import shade as shd
 from ..ops import texture as tex
 from ..utils import metrics as metricsmod
-from . import graphs
 
 REMAT_MODES = ("none", "hits", "full")
 
@@ -163,7 +164,8 @@ def bounce_step(static, light_bias: float, compact: bool, kernel: str):
     """`step(pack, s: BounceState) -> BounceState`: one bounce of the
     non-differentiable trace (the compaction sort, the closest hit, the
     shading), a pure function of the pack and the lanes (their seed
-    included), so that graphs.GraphedStep can replay it."""
+    included), so that a graph can replay it (renderer.BatchProgram's loop
+    body)."""
 
     def step(pack, s: BounceState) -> BounceState:
         if compact:
@@ -179,8 +181,7 @@ def bounce_step(static, light_bias: float, compact: bool, kernel: str):
 
 def trace(pack, static, org, dirn, rng_ctx, max_depth: int, light_bias: float,
           compact: bool = True, differentiable: bool = False,
-          kernel: str = "auto", remat: str = "hits", stats: Optional[dict] = None,
-          graph_cache: Optional[dict] = None):
+          kernel: str = "auto", remat: str = "hits", stats: Optional[dict] = None):
     """Trace a batch of rays to the end of their paths; returns the (N, 3)
     radiance in the caller's lane order (reference integrator.py:143-261).
 
@@ -191,14 +192,8 @@ def trace(pack, static, org, dirn, rng_ctx, max_depth: int, light_bias: float,
     the caller's order at the end.
 
     differentiable=False: a loop that stops when max_depth bounces ran or
-    no lane is alive (one host read a bounce), under torch.no_grad().
-    With a `graph_cache` (a dict the caller owns, as a Renderer does) and
-    on the card (where graphs.applies), each bounce is one replay of a CUDA
-    graph of `bounce_step`, its bounce index and seed 0-d device tensors
-    (the graph advances the bounce); the graph stays in the cache for
-    later calls with the same pack, static tables, lane count, kernel,
-    light_bias and compact, at any seed (graphs.cached keeps the newest
-    bounce graph).  Without one the bounces run eagerly.
+    no lane is alive (one host read a bounce), under torch.no_grad(),
+    eagerly.
     differentiable=True: all max_depth bounces, differentiable in the
     pack's float tables (ScenePack.with_grad), with no host read: run
     eagerly here, or captured whole with the caller's loss and backward
@@ -218,9 +213,25 @@ def trace(pack, static, org, dirn, rng_ctx, max_depth: int, light_bias: float,
     """
     if remat not in REMAT_MODES:
         raise ValueError(f"unknown remat {remat!r}; choose from {REMAT_MODES}")
+    s = start_state(org, dirn, rng_ctx)
+    if differentiable:
+        s, bounces = _trace_differentiable(pack, static, s, max_depth, light_bias, compact,
+                                           kernel, remat)
+    else:
+        with torch.no_grad():
+            s, bounces = _trace_bounces(pack, static, s, max_depth, light_bias, compact,
+                                        kernel)
+    if stats is not None:
+        stats["bounces"] = bounces
+    return scatter_back(s) if compact else s.radiance
+
+
+def start_state(org, dirn, rng_ctx) -> BounceState:
+    """The lanes of a batch before its first bounce: every lane alive, unit
+    throughput, no radiance, in the caller's order (bounce 0)."""
     n = org.shape[0]
     dev = org.device
-    s = BounceState(
+    return BounceState(
         org=org, dirn=dirn,
         throughput=torch.ones((n, 3), dtype=org.dtype, device=dev),
         radiance=torch.zeros((n, 3), dtype=org.dtype, device=dev),
@@ -228,19 +239,25 @@ def trace(pack, static, org, dirn, rng_ctx, max_depth: int, light_bias: float,
         src=torch.arange(n, device=dev),
         pixel=vrng.as_u32(rng_ctx.pixel), sample=vrng.as_u32(rng_ctx.sample), depth=0,
         seed=rng_ctx.seed)
-    if differentiable:
-        s, bounces = _trace_differentiable(pack, static, s, max_depth, light_bias, compact,
-                                           kernel, remat)
-    else:
-        with torch.no_grad():
-            s, bounces = _trace_bounces(pack, static, s, max_depth, light_bias, compact,
-                                        kernel, graph_cache)
-    if stats is not None:
-        stats["bounces"] = bounces
-    if compact:
-        # scatter back to the caller's lane order
-        return torch.zeros_like(s.radiance).index_copy(0, s.src, s.radiance)
-    return s.radiance
+
+
+def scatter_back(s: BounceState):
+    """The lanes' radiance scattered back to the caller's lane order."""
+    return torch.zeros_like(s.radiance).index_copy(0, s.src, s.radiance)
+
+
+def batch_lanes(start, n: int, total: int, spp: int, width: int):
+    """(lane, px, py, sample) of `n` lanes of the flattened (pixel, sample)
+    grid, pixel-major, from lane `start` (a 0-d int64 tensor: the ids are
+    computed on its device, so a graph serves every batch): lane = start +
+    i, wrapped at `total` (a lane >= total is padding), pixel = lane % total
+    // spp, sample = lane % total % spp, px = pixel % width, py = pixel //
+    width; the reference's batch ids (rust_raytracer_tpu/render/
+    renderer.py:146-152)."""
+    lane = start + torch.arange(n, device=start.device)
+    flat = lane % total
+    pix = flat // spp
+    return lane, pix % width, pix // width, flat % spp
 
 
 def _check_nans(depth, s: BounceState):
@@ -249,15 +266,8 @@ def _check_nans(depth, s: BounceState):
                               throughput=s.throughput, radiance=s.radiance)
 
 
-def _trace_bounces(pack, static, s, max_depth, light_bias, compact, kernel, graph_cache):
-    step = fn = bounce_step(static, light_bias, compact, kernel)
-    if graph_cache is not None and graphs.applies(s.org.device, kernel, pack):
-        step = graphs.cached(graph_cache, (static,),
-                             ("bounce", kernel, float(light_bias), compact),
-                             lambda: graphs.GraphedStep(fn))
-        dev = s.org.device
-        s = s._replace(depth=torch.zeros((), dtype=torch.int64, device=dev),
-                       seed=torch.as_tensor(s.seed, dtype=torch.int64).to(dev))
+def _trace_bounces(pack, static, s, max_depth, light_bias, compact, kernel):
+    step = bounce_step(static, light_bias, compact, kernel)
     bounces = 0
     for depth in range(max_depth):
         if not bool(s.alive.any()):

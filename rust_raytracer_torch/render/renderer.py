@@ -9,16 +9,20 @@ fixed-size batches through `integrator.trace`.  Both return a Film.
 Because the RNG is keyed by (pixel, sample, bounce), the two schedules
 trace the same paths; they differ only in the order of each pixel's sum.
 With a `mesh` (parallel/mesh.py) both schedules shard their lanes over it.
-On the card the pool step and the batch bounce replay CUDA graphs
-(render/graphs.py); the Renderer keeps the newest of each (graphs.cached),
-so a later render replays what an earlier one captured: the batch bounce's
-graph at any seed (the seed is a 0-d device tensor in its state), the pool
-step's with the same camera, spp, seed, kernel and mesh (the seed is a
-constant of the step, as in the reference's jitted pool step).
+On the card the pool step replays a CUDA graph a step and a batch of the
+batch render is one launch of a graph that holds the whole batch program,
+its bounce loop included (`BatchProgram`, render/graphs.py:LoopGraph);
+`trace_batch`, its plain version, runs eagerly.  The Renderer keeps the
+newest graph of each kind (graphs.cached), so a later render replays what
+an earlier one captured: the batch program at any seed (the seed is a 0-d
+device tensor), the pool step's with the same camera, spp, seed, kernel
+and mesh (the seed is a constant of the step, as in the reference's
+jitted pool step).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Union
 
 import numpy as np
@@ -46,9 +50,132 @@ MODES = ("pool", "batch")
 class BatchMetrics:
     """Counters of one batch render: batches traced and bounces traced in
     all (a batch stops when its last path ends or at max_depth; with a mesh,
-    each shard's bounces count)."""
+    each shard's bounces count); and the host's seconds, split into
+    launching the batches (graphed: the batch-start fill, the launch and
+    the copies home; eager: the whole trace and its read back), waiting on a
+    batch's copy home, and the float64 sum per pixel."""
     batches: int = 0
     bounces: int = 0
+    launch_s: float = 0.0
+    wait_s: float = 0.0
+    sum_s: float = 0.0
+
+
+class BatchProgram:
+    """One batch of the batch render on one device as one program: the
+    reference's `jax.jit(batch_fn)` (rust_raytracer_tpu/render/renderer.py:
+    57-77) with its bounce loop (render/integrator.py:248-256).
+
+    From the 0-d int64 `start` (the batch's first lane) and `seed`, the
+    prologue computes this shard's `n` lane ids (integrator.batch_lanes,
+    from lane start + `offset`) and camera rays and starts the lanes; the
+    body is one bounce (integrator.bounce_step, compaction on) and the
+    any-alive flag of the loop's stop test; the epilogue scatters the
+    radiance back to lane order, zeroes the padded lanes (lane >= total)
+    and writes it into `out`.  `bounces` counts the bodies run.  On the
+    card `run()` is one launch of a graphs.LoopGraph (its stop test on the
+    card); on the CPU a graphs.PlainLoop runs the same stages.  Every
+    tensor the stages read or write is a static buffer made here."""
+
+    def __init__(self, pack, static, camera, n: int, offset: int, total: int, spp: int,
+                 kernel: str, dtype=torch.float32):
+        dev = pack.device
+        i64 = torch.int64
+        self.pack, self.camera, self.dtype = pack, camera, dtype
+        self.n, self.offset, self.total, self.spp = n, offset, total, spp
+
+        def zeros(shape, dtype_):
+            return torch.zeros(shape, dtype=dtype_, device=dev)
+
+        self.start, self.seed = zeros((), i64), zeros((), i64)
+        self.state = integrator.BounceState(
+            org=zeros((n, 3), dtype), dirn=zeros((n, 3), dtype),
+            throughput=zeros((n, 3), dtype), radiance=zeros((n, 3), dtype),
+            alive=zeros((n,), torch.bool), src=zeros((n,), i64), pixel=zeros((n,), i64),
+            sample=zeros((n,), i64), depth=zeros((), i64), seed=self.seed)
+        self.any_alive = torch.ones((), dtype=torch.bool, device=dev)
+        self.flag = torch.ones((), dtype=torch.uint8, device=dev)
+        self.bounces = zeros((), i64)
+        self.out = zeros((n, 3), dtype)
+        self._step = integrator.bounce_step(static, camera.light_bias, True, kernel)
+        self.loop = graphs.loop_graph(self.prologue, self.body, self.epilogue, self.any_alive,
+                                      self.state.depth, self.flag, self.bounces,
+                                      camera.max_depth)
+
+    def lanes(self):
+        """(lane, px, py, sample) of this shard's lanes of the batch."""
+        return integrator.batch_lanes(self.start + self.offset, self.n, self.total, self.spp,
+                                      self.camera.image_width)
+
+    def prologue(self) -> None:
+        _, px, py, smp = self.lanes()
+        ctx = vrng.Ctx(pixel=py * self.camera.image_width + px, sample=smp, bounce=0,
+                       seed=self.seed)
+        org, dirn = self.camera.generate_rays(px, py, smp, ctx, self.dtype)
+        for buf, t in zip(self.state[:-2], integrator.start_state(org, dirn, ctx)[:-2]):
+            buf.copy_(t)
+        self.state.depth.zero_()
+        self.bounces.zero_()
+
+    def body(self) -> None:
+        s = self._step(self.pack, self.state)
+        for buf, t in zip(self.state[:-1], s[:-1]):
+            buf.copy_(t)
+        self.any_alive.copy_(s.alive.any())
+
+    def epilogue(self) -> None:
+        lane = self.lanes()[0]
+        rad = integrator.scatter_back(self.state)
+        self.out.copy_(torch.where((lane < self.total)[:, None], rad, 0.0))
+
+    def run(self) -> None:
+        """The batch from the current `start` and `seed` into `out`."""
+        self.loop.launch()
+
+
+class BatchRun:
+    """The batch programs of a graphed batch render, one a shard of this
+    process, and two host buffers (pinned on the card) that the batches'
+    radiance and bounce counts are copied into, in turns.  `launch(start,
+    slot)` fills each program's `start`, launches it and queues the copies
+    home, then records an event; `wait(slot)` waits on that event and
+    returns the batch's radiance (this process's lanes) and bounces, and
+    advances the launch counters by them."""
+
+    def __init__(self, parts, static, camera, total: int, spp: int, kernel: str, dtype):
+        self.programs = [BatchProgram(pack, static, camera, n, offset, total, spp, kernel,
+                                      dtype) for pack, offset, n in parts]
+        n_local = sum(p.n for p in self.programs)
+        pin = self.programs[0].out.device.type == "cuda"
+        self.rad = [torch.empty((n_local, 3), dtype=dtype, pin_memory=pin) for _ in range(2)]
+        self.bounces = [torch.empty((len(self.programs),), dtype=torch.int64, pin_memory=pin)
+                        for _ in range(2)]
+        self.events = [[torch.cuda.Event() if pin else None for _ in self.programs]
+                       for _ in range(2)]
+
+    def set_seed(self, seed: int) -> None:
+        for p in self.programs:
+            p.seed.fill_(seed)
+
+    def launch(self, start: int, slot: int) -> None:
+        row = 0
+        for i, p in enumerate(self.programs):
+            p.start.fill_(start)
+            p.run()
+            self.rad[slot][row:row + p.n].copy_(p.out, non_blocking=True)
+            self.bounces[slot][i].copy_(p.bounces, non_blocking=True)
+            row += p.n
+            if self.events[slot][i] is not None:
+                self.events[slot][i].record(torch.cuda.current_stream(p.out.device))
+
+    def wait(self, slot: int):
+        for ev in self.events[slot]:
+            if ev is not None:
+                ev.synchronize()
+        counts = self.bounces[slot].tolist()
+        for p, b in zip(self.programs, counts):
+            p.loop.count(b)
+        return self.rad[slot].numpy(), sum(counts)
 
 
 class Renderer:
@@ -76,7 +203,7 @@ class Renderer:
         TypeError).  `mesh` shards both schedules' lanes
         (parallel/mesh.py; the attribute may be set between renders); the
         pack compiles on `device` and is copied to the mesh's other
-        devices.  `graph`: on the card, the pool step and the batch bounce
+        devices.  `graph`: on the card, the pool step and the batch program
         replay CUDA graphs (render/graphs.py); False runs them eagerly, the
         reference the graphs are held against (the attribute may be set
         between renders).  The CPU and the "jnp" walk always run eagerly."""
@@ -96,7 +223,7 @@ class Renderer:
         self.pack, self.static = scompiler.compile_scene(scene, self.device, dtype)
         isect.resolve_kernel(kernel, self.pack)
         self._bounces = 0
-        self._graphs = {}   # the pool steps and batch bounces built, with their graphs
+        self._graphs = {}   # the pool steps and batch runs built, with their graphs
 
     def _trace_lanes(self, pack, px, py, sample_id, seed):
         """Radiance (N, 3) of one sample per lane (the reference's batch_fn);
@@ -107,8 +234,7 @@ class Renderer:
         org, dirn = camera.generate_rays(px, py, sample_id, ctx, self.dtype)
         stats = {}
         rad = integrator.trace(pack, self.static, org, dirn, ctx, camera.max_depth,
-                               camera.light_bias, kernel=self.kernel, stats=stats,
-                               graph_cache=self._graphs if self.graph else None)
+                               camera.light_bias, kernel=self.kernel, stats=stats)
         self._bounces += stats["bounces"]
         return rad
 
@@ -155,7 +281,8 @@ class Renderer:
     def trace_batch(self, px, py, sample_id, stats: Optional[dict] = None) -> torch.Tensor:
         """Radiance (N, 3) of one sample per lane: camera rays for pixels
         (px, py) and sample ids, traced to max_depth (int64 tensors on the
-        renderer's device), sharded over the mesh if there is one; `stats`,
+        renderer's device), sharded over the mesh if there is one, eagerly
+        (the batch program's plain version); `stats`,
         a dict if given, gets "bounces": the bounces traced (summed over
         the shards)."""
         self._bounces = 0
@@ -167,15 +294,40 @@ class Renderer:
             stats["bounces"] = self._bounces
         return rad
 
+    def _batch_run(self, batch: int, total: int, spp: int) -> BatchRun:
+        """The graphed batch render's programs for this batch layout, one a
+        shard of this process (the Renderer's cache keeps the newest)."""
+        if self.mesh is None:
+            parts = [(self.pack, 0, batch)]
+        else:
+            replica = pmesh.replicas(self.pack)
+            parts = [(replica(dev), sl.start, sl.stop - sl.start)
+                     for dev, sl in zip(self.mesh.devices, pmesh.lane_slices(self.mesh, batch))]
+        return graphs.cached(
+            self._graphs, (self.pack, self.static, self.camera, self.mesh),
+            ("batch", batch, total, spp, self.kernel),
+            lambda: BatchRun(parts, self.static, self.camera, total, spp, self.kernel,
+                             self.dtype))
+
     def render_batched(self, spp: Optional[int] = None,
                        metrics: Optional[BatchMetrics] = None) -> filmmod.Film:
         """Render the full image: the flattened (pixel, sample) grid,
         pixel-major, is traced in batches of `batch_size` lanes (the tail
         batch padded by wrapping, its padded lanes zeroed), and each batch's
         radiance is summed per pixel on the host in float64, in lane order
-        (np.bincount), so the image does not depend on the batch size.  With
-        a mesh a batch that the shard count does not divide grows to the
-        next multiple of it (the extra lanes are padding)."""
+        (np.bincount), so the image does not depend on the batch size or
+        the shard count.  With a mesh a batch that the shard count does not
+        divide grows to the next multiple of it (the extra lanes are
+        padding).
+
+        On the card (where graphs.applies, with graph on and outside
+        metrics.debug_nans) a batch is one launch of each shard's
+        BatchProgram, and the host sums batch i while the card traces batch
+        i + 1: its one wait a batch is on the previous batch's copy home.
+        Otherwise each batch runs `trace_batch` eagerly (ids made on the
+        device, the bounce loop read on the host each bounce) and is summed
+        before the next.  Both add the same float32 radiance in the same
+        order, so their images are equal bit for bit."""
         camera = self.camera
         w, h = camera.image_width, camera.image_height
         total_spp = camera.actual_spp if spp is None else spp
@@ -184,22 +336,46 @@ class Renderer:
         batch = min(self.batch_size, total)
         if self.mesh is not None:
             batch = -(-batch // self.mesh.n_shards) * self.mesh.n_shards
-
+        metrics = BatchMetrics() if metrics is None else metrics
         accum = np.zeros((n_pixels, 3), np.float64)
-        for start in range(0, total, batch):
-            lane = start + np.arange(batch)
-            flat = lane % total
-            pix = flat // total_spp
-            smp = flat % total_spp
-            ids = torch.from_numpy(np.stack([pix % w, pix // w, smp])).to(self.device)
-            stats = {}
-            rad = self.trace_batch(ids[0], ids[1], ids[2], stats).cpu().numpy()
-            if metrics is not None:
-                metrics.batches += 1
-                metrics.bounces += stats["bounces"]
-            rad[lane >= total] = 0.0
+
+        def add(start, rad, bounces):
+            t0 = time.perf_counter()
+            metrics.batches += 1
+            metrics.bounces += bounces
+            pix = (start + np.arange(batch)) % total // total_spp
             for c in range(3):
                 accum[:, c] += np.bincount(pix, weights=rad[:, c], minlength=n_pixels)
+            metrics.sum_s += time.perf_counter() - t0
+
+        graphed = (self.graph and graphs.applies(self.device, self.kernel, self.pack)
+                   and not metricsmod.nan_checks())
+        if graphed:
+            run = self._batch_run(batch, total, total_spp)
+            run.set_seed(self.seed)
+            starts = list(range(0, total, batch))
+            for k, start in enumerate(starts + [None]):
+                t0 = time.perf_counter()
+                if start is not None:
+                    run.launch(start, k % 2)
+                t1 = time.perf_counter()
+                if k:
+                    rad, bounces = run.wait((k - 1) % 2)
+                    if self.mesh is not None and self.mesh.multiprocess:
+                        rad = pmesh.all_gather_cat(self.mesh, torch.from_numpy(rad)).numpy()
+                    metrics.wait_s += time.perf_counter() - t1
+                    add(starts[k - 1], rad, bounces)
+                metrics.launch_s += t1 - t0
+        else:
+            for start in range(0, total, batch):
+                t0 = time.perf_counter()
+                first = torch.full((), start, dtype=torch.int64, device=self.device)
+                _, px, py, smp = integrator.batch_lanes(first, batch, total, total_spp, w)
+                stats = {}
+                rad = self.trace_batch(px, py, smp, stats).cpu().numpy()
+                rad[start + np.arange(batch) >= total] = 0.0
+                metrics.launch_s += time.perf_counter() - t0
+                add(start, rad, stats["bounces"])
         film = filmmod.Film(w, h)
         film.add_samples(accum.reshape(h, w, 3), total_spp)
         return film

@@ -68,7 +68,7 @@ def parse_obj(path: str):
                 normals.append(n)
             elif cmd == "f":
                 corners = []
-                for p in parts[1:4]:
+                for p in parts[1:]:
                     comps = p.split("/")
                     vi = int(comps[0])
                     vi = vi - 1 if vi > 0 else len(verts) + vi
@@ -81,11 +81,14 @@ def parse_obj(path: str):
                         nn = int(comps[2])
                         ni = nn - 1 if nn > 0 else len(normals) + nn
                     corners.append((vi, ni, ti))
-                # match the reference: a triangle "has uvs" only if all three
-                # corners do (obj.rs:83-91)
-                if any(c[2] < 0 for c in corners):
-                    corners = [(v, n, -1) for v, n, _ in corners]
-                tris.append(corners)
+                # a polygon is fan-triangulated, as native/obj.cc and the
+                # reference's loader do; a triangle "has uvs" only if all
+                # three corners do (obj.rs:83-91)
+                for k in range(1, len(corners) - 1):
+                    tri = [corners[0], corners[k], corners[k + 1]]
+                    if any(c[2] < 0 for c in tri):
+                        tri = [(v, n, -1) for v, n, _ in tri]
+                    tris.append(tri)
 
     return (
         np.asarray(verts, np.float64).reshape(-1, 3),

@@ -19,7 +19,7 @@ whether the graph is right on the card:
 - train_step_fn through the graph on a 2-shard CPU mesh against its eager
   path;
 - the Renderer's graph cache keeps the newest graph of each kind, and the
-  batch bounce's one graph serves every seed.
+  batch program's one graph serves every seed.
 """
 import jax
 import jax.numpy as jnp
@@ -303,7 +303,7 @@ def test_cached_keeps_the_newest_of_each_kind():
         return lambda: built.append(tag) or tag
 
     assert tgraphs.cached(cache, (pin,), ("pool", 1), make("p1")) == "p1"
-    assert tgraphs.cached(cache, (pin,), ("bounce", 1), make("b1")) == "b1"
+    assert tgraphs.cached(cache, (pin,), ("batch", 1), make("b1")) == "b1"
     assert tgraphs.cached(cache, (pin,), ("pool", 1), make("again")) == "p1"
     assert tgraphs.cached(cache, (pin,), ("pool", 2), make("p2")) == "p2"
     assert built == ["p1", "b1", "p2"]
@@ -313,11 +313,11 @@ def test_cached_keeps_the_newest_of_each_kind():
 @pytest.mark.parametrize("mode", ["pool", "batch"])
 def test_renderer_cache_is_bounded(dragon, graphs_on_cpu, mode):
     """Renders at seeds 0, 1, 2 keep one graph of their kind in the
-    Renderer's cache: the batch bounce, whose seed is a 0-d tensor in its
-    state, is captured once for all three; the pool step, keyed by its
-    seed as the reference's jitted step closes over it, once a seed, each
-    replacing the last.  Every image equals the eager render's at its seed
-    bit for bit."""
+    Renderer's cache: the batch program, whose seed is a 0-d tensor, is
+    built once for all three (its loop once, no per-bounce capture); the
+    pool step, keyed by its seed as the reference's jitted step closes
+    over it, is captured once a seed, each replacing the last.  Every
+    image equals the eager render's at its seed bit for bit."""
     scene, _, _, cam = dragon
     r = TRenderer(scene, cam, batch_size=LANES, kernel="threaded", device="cpu")
     eager = TRenderer(scene, cam, batch_size=LANES, kernel="threaded", device="cpu",
@@ -327,4 +327,4 @@ def test_renderer_cache_is_bounded(dragon, graphs_on_cpu, mode):
         np.testing.assert_array_equal(r.render(mode=mode).hdr(),
                                       eager.render(mode=mode).hdr())
         assert len(r._graphs) == 1
-    assert graphs_on_cpu.count == (1 if mode == "batch" else 3)
+    assert (graphs_on_cpu.count, graphs_on_cpu.loops) == ((0, 1) if mode == "batch" else (3, 0))

@@ -1,4 +1,4 @@
-"""The graphed pool step and batch bounce (render/graphs.py) on the CPU.
+"""The graphed pool step (render/graphs.py) and the batch bounce on the CPU.
 
 A CUDA graph cannot be captured here, so these tests hold what decides
 whether the graph is right on the card:
@@ -36,6 +36,7 @@ from rust_raytracer_torch.render import camera as tcam
 from rust_raytracer_torch.render import graphs as tgraphs
 from rust_raytracer_torch.render import integrator as tintegrator
 from rust_raytracer_torch.render import pool as tpool
+from rust_raytracer_torch.render import renderer as trend
 from rust_raytracer_torch.render.renderer import Renderer as TRenderer
 from rust_raytracer_torch.scene import compiler as tcompiler
 from rust_raytracer_torch.scene import graph as tg
@@ -188,10 +189,12 @@ def test_step_is_capture_safe(built, monkeypatch, scene, kernel, what):
 
 class DirectCapture:
     """Stands in for the CUDA capture: `replay` calls the captured body.
-    Counts the captures."""
+    Counts the captures (and, under graphs_on_cpu, in `loops` the batch
+    programs' loops built)."""
 
     def __init__(self):
         self.count = 0
+        self.loops = 0
 
     def __call__(self, body, device):
         self.count += 1
@@ -286,11 +289,21 @@ def test_graph_follows_pack_and_lanes(built):
 @pytest.fixture
 def graphs_on_cpu(monkeypatch):
     """render/graphs.py as on the card, with DirectCapture for the capture:
-    the pool step and the batch bounce go through GraphedStep on the CPU."""
+    the pool step goes through GraphedStep on the CPU, and the batch
+    render through its batch programs, whose loops (the
+    graph's plain form here, graphs.PlainLoop) are counted in
+    `capture.loops`."""
     capture = DirectCapture()
     monkeypatch.setattr(tgraphs, "applies",
                         lambda device, kernel, pack: tisect.resolve_kernel(kernel, pack) != "jnp")
     monkeypatch.setattr(tgraphs, "cuda_capture", capture)
+
+    class CountedLoop(tgraphs.PlainLoop):
+        def __init__(self, *args, **kwargs):
+            capture.loops += 1
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(tgraphs, "PlainLoop", CountedLoop)
     return capture
 
 
@@ -331,41 +344,49 @@ def bounce_start(cam, n, seed=0):
 
 @pytest.mark.parametrize("kernel", ["threaded", "wavefront"])
 def test_graphed_bounce_equals_trace(built, graphs_on_cpu, monkeypatch, kernel):
-    """trace() through the graphed bounce equals the eager trace bit for
-    bit, with one capture for both calls and K3 launches equal to the
-    bounces; the bounce index lives in a 0-d tensor that the graph
-    advances."""
+    """The bounce as the batch program runs it (render/renderer.py:
+    BatchProgram, the body of its loop; the loop a PlainLoop here) equals
+    the eager trace bit for bit, for two batches of one program, with K3
+    launches equal to the bounces; the bounce index lives in a 0-d tensor
+    that the body advances.  trace() itself captures nothing: it is the
+    program's plain version."""
     _, pack, static, cam = built["fog"]
     counted(monkeypatch, tthreaded, "intersect_triangles_threaded")
-    s = bounce_start(cam, LANES)
-    ctx = trng.Ctx(pixel=s.pixel, sample=s.sample, bounce=0, seed=3)
-    cache, got = {}, []
-    for _ in range(2):
-        stats = {}
+    w = cam.image_width
+    total = w * cam.image_height * SPP
+    prog = trend.BatchProgram(pack, static, cam, LANES, 0, total, SPP, kernel)
+    for start, seed in ((0, 3), (LANES, 4)):
         tthreaded.launches = 0
-        got.append(tintegrator.trace(pack, static, s.org, s.dirn, ctx, DEPTH, cam.light_bias,
-                                     kernel=kernel, stats=stats, graph_cache=cache))
-        assert tthreaded.launches == (stats["bounces"] if kernel == "threaded" else 0)
-    assert graphs_on_cpu.count == 1 and stats["bounces"] > 1
-    (graphed,) = (v for _, v in cache.values())
-    assert int(graphed.captures[torch.device("cpu")].inputs.depth) == stats["bounces"]
-    want = tintegrator.trace(pack, static, s.org, s.dirn, ctx, DEPTH, cam.light_bias,
-                             kernel=kernel)
-    for g in got:
-        assert torch.equal(g, want)
+        prog.start.fill_(start)
+        prog.seed.fill_(seed)
+        prog.run()
+        bounces = int(prog.bounces)
+        assert tthreaded.launches == (bounces if kernel == "threaded" else 0)
+        assert int(prog.state.depth) == bounces > 1
+        _, px, py, smp = tintegrator.batch_lanes(torch.tensor(start), LANES, total, SPP, w)
+        ctx = trng.Ctx(pixel=py * w + px, sample=smp, bounce=0, seed=seed)
+        org, dirn = cam.generate_rays(px, py, smp, ctx)
+        stats = {}
+        want = tintegrator.trace(pack, static, org, dirn, ctx, cam.max_depth, cam.light_bias,
+                                 kernel=kernel, stats=stats)
+        assert stats["bounces"] == bounces
+        assert torch.equal(prog.out, want)
+    assert (graphs_on_cpu.loops, graphs_on_cpu.count) == (1, 0)
 
 
 def test_batch_render_through_graphed_bounce(built, graphs_on_cpu):
-    """render(mode="batch") replays its bounce graph (one capture, kept
-    for the second render) and gives the eager render's image bit for
-    bit."""
+    """render(mode="batch") runs its batch program (render/renderer.py:
+    BatchProgram: the whole batch, its bounce loop included, one graph
+    launch on the card), built once and kept for the second render, and
+    gives the eager render's image bit for bit; neither captures the
+    per-bounce step."""
     scene, _, _, cam = built["mini_dragon"]
     r = TRenderer(scene, cam, batch_size=LANES, kernel="threaded", device="cpu")
     imgs = [r.render(mode="batch").hdr() for _ in range(2)]
-    assert graphs_on_cpu.count == 1
+    assert (graphs_on_cpu.loops, graphs_on_cpu.count) == (1, 0)
     r.graph = False
     want = r.render(mode="batch").hdr()
-    assert graphs_on_cpu.count == 1
+    assert (graphs_on_cpu.loops, graphs_on_cpu.count) == (1, 0)
     for img in imgs:
         np.testing.assert_array_equal(img, want)
 

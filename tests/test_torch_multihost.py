@@ -6,8 +6,8 @@ Each worker runs in its own subprocess (a torch.distributed process group is
 per-process state) with one thread, on a port found by binding port 0; a
 worker that hangs is killed at its timeout and fails the test.  Batch
 radiance is bit-identical per lane, the pool image agrees within float sum
-order with equal issued counts, and train_step_fn's gradients within rtol
-1e-6."""
+order with equal issued counts, train_step_fn's gradients within rtol
+1e-6, and the batch render through its batch programs bit for bit."""
 import os
 import socket
 import subprocess
@@ -28,9 +28,10 @@ _WORK = textwrap.dedent("""
     from rust_raytracer_torch import models
     from rust_raytracer_torch.core import rng as vrng
     from rust_raytracer_torch.parallel import mesh as pmesh
-    from rust_raytracer_torch.render import integrator
+    from rust_raytracer_torch.render import graphs, integrator
     from rust_raytracer_torch.render import pool as poolmod
     from rust_raytracer_torch.render.camera import Camera
+    from rust_raytracer_torch.render.renderer import BatchMetrics, Renderer
     from rust_raytracer_torch.scene import compiler
     from rust_raytracer_torch.utils import metrics as metricsmod
 
@@ -60,8 +61,20 @@ _WORK = textwrap.dedent("""
             lambda *a: batch_fn(*a, differentiable=True),
             lambda r, t: ((r - t) ** 2).mean(), mesh)
         loss, grads = step(pack, px, py, smp, 0, torch.zeros((n, 3)))
+        # the batch render through its batch programs (graphs.applies as on
+        # the card; the loops run as graphs.PlainLoop) and eagerly
+        r = Renderer(scene, cam, seed=5, batch_size=96, device="cpu", mesh=mesh)
+        real = graphs.applies
+        graphs.applies = lambda device, kernel, pack: True
+        try:
+            bm = BatchMetrics()
+            prog_img = r.render(mode="batch", metrics=bm).hdr()
+        finally:
+            graphs.applies = real
+        eager_img = r.render(mode="batch").hdr()
         np.savez(out, rad=rad.numpy(), img=img.numpy(), issued=m.samples_issued,
-                 steps=m.steps, loss=float(loss),
+                 steps=m.steps, loss=float(loss), prog_img=prog_img, eager_img=eager_img,
+                 prog_batches=bm.batches,
                  **{"grad_" + f: g.numpy() for f, g in zip(pack.float_fields(), grads)})
 """)
 
@@ -158,3 +171,15 @@ def test_two_process_train_step(results):
     for k in keys:
         np.testing.assert_allclose(two[k], one[k], rtol=1e-6, atol=1e-9, err_msg=k)
         np.testing.assert_array_equal(rank1[k], two[k])
+
+
+def test_two_process_batch_program_image(results):
+    """The batch render through its batch programs over 2 processes x 2
+    shards (each batch's radiance gathered across the processes after its
+    wait) equals the 1-process 4-shard render and the eager render bit for
+    bit, on both ranks."""
+    two, rank1, one = results
+    assert int(two["prog_batches"]) == 3 and np.abs(two["prog_img"]).max() > 0
+    for got in (two["prog_img"], rank1["prog_img"], two["eager_img"], rank1["eager_img"]):
+        np.testing.assert_array_equal(got, one["prog_img"])
+    np.testing.assert_array_equal(one["eager_img"], one["prog_img"])
