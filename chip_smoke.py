@@ -65,14 +65,21 @@ within rtol 1e-3 of the gradients, no K1 or K3 launch, an f64 Renderer with
 kernel="auto" refused); cornell_dragon at the main path's size through the
 pool with make_mesh(1) and with two shards on the one card (K1 launches =
 shards x steps, every job issued, the image against the unsharded pool's,
-the rates side by side), the wavefront pool with make_mesh(1) (its overflow
-equal to the unsharded render's), the batch render through K3 with 1 and 2
-shards, and train_step_fn through K3 with 1 and 2 shards, eager and
-graphed (one GraphedGrad replay a shard a step; equal after
-normalisation); and a 2-shard pool state saved, loaded and stepped on
-beside the live one (lane state equal bit for bit; the file's size, save
-and load times).  The kernels line gives each kernel's launches on these
-sharded paths (`sharded_launches`).
+the rates side by side; each shard's state made and kept on its device,
+render/pool.py's ShardedState), the two-shard step graphed against eager
+over 20 steps (lane state bit-equal shard for shard, each shard's state
+its graph's donated buffers) and its steady step split beside the
+unsharded graphed step's (wall, busy, kernels, and what the host issues
+a step: no aten op besides the replays, the CUDA runtime's graph
+launches and other launches), the wavefront pool with make_mesh(1) (its
+overflow equal to the unsharded render's), the batch render through K3
+with 1 and 2 shards, and train_step_fn through K3 with 1 and 2 shards,
+eager and graphed (one GraphedGrad replay a shard a step; equal after
+normalisation); and a 2-shard pool state saved in the stacked layout,
+loaded back on the mesh shard for shard and stepped on beside the live
+one (lane state equal bit for bit; the file's size, save and load
+times).  The kernels line gives each kernel's launches on these sharded
+paths (`sharded_launches`).
 
 Then the CUDA graphs (render/graphs.py; phase 25): on the card every pool
 render above replays a captured graph a step, and the phases that hook a
@@ -163,6 +170,7 @@ sys.modules["jax"] = None  # the port must run without JAX
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 W, SPP, DEPTH, LANES = 1200, 1, 20, 1 << 18
 GRAD_LANES = 1 << 15
@@ -437,6 +445,23 @@ def pool_step_parity(renderer):
     return max_err
 
 
+class OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched while it is on: the device work the
+    host issues itself (a graph replay dispatches none)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = Counter()
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        self.ops[func.overloadpacket.__name__] += 1
+        return func(*args, **(kwargs or {}))
+
+
+# the host's CUDA runtime calls that put work on a stream outside a graph
+HOST_LAUNCH = re.compile(r"cu(da)?(LaunchKernel|LaunchCooperative|Memcpy|Memset)")
+
+
 def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None, graph=False):
     """Time `steps` steady-state pool steps of `renderer`'s path, then
     profile as many more: wall time, device time, and the share of each
@@ -447,16 +472,23 @@ def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None, graph
     include its capture, and the kernels a step are those the profiler
     sees a replay run).  Eager and without a `mesh`, raises unless the
     profiled steps' mean launches a step is within STEP_SLACK[kernel] of
-    STEP_LAUNCHES[kernel]; with one, the step is the sharded step.  Returns
-    (launches a step, wall ms a step, device busy ms a step)."""
+    STEP_LAUNCHES[kernel]; with one, the step is the sharded step, from
+    each shard's state made on its device.  Also counted a step: the aten
+    ops the host dispatched (one more step, outside the profiler), and the
+    profiler's CUDA runtime calls, graph launches apart from the launches,
+    copies and fills issued outside a graph (None if the profiler recorded
+    neither).  Returns a dict: launches (kernels a step), wall_ms, busy_ms,
+    ops, replays, host_launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from rust_raytracer_torch.render import pool as poolmod
 
     n_pixels = camera.image_width * camera.image_height
     total = n_pixels * SPP
-    state = poolmod.init_state(LANES, n_pixels, renderer.pack.device,
-                               n_shards=None if mesh is None else mesh.n_local)
+    if mesh is None:
+        state = poolmod.init_state(LANES, n_pixels, renderer.pack.device)
+    else:
+        state = poolmod.init_shards(LANES, n_pixels, mesh)
     step = poolmod.make_step(renderer.pack, renderer.static, camera, total, SPP,
                              renderer.seed, kernel=renderer.kernel, mesh=mesh, graph=graph)
     for _ in range(warm):
@@ -467,12 +499,23 @@ def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None, graph
         state = step(renderer.pack, state)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with OpCount() as dispatched:
+        state = step(renderer.pack, state)
+    n_ops = sum(dispatched.ops.values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             state = step(renderer.pack, state)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / steps
+    api = Counter()
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA and e.key.startswith("cu"):
+            api[e.key] += e.count
+    replays = sum(n for k, n in api.items() if k.startswith("cudaGraphLaunch")) / steps
+    host_launches = sum(n for k, n in api.items() if HOST_LAUNCH.match(k)) / steps
+    if not (replays or host_launches):
+        replays = host_launches = None
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
@@ -484,10 +527,13 @@ def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None, graph
     tag = renderer.kernel if mesh is None else f"{renderer.kernel}, {mesh.n_shards} shard(s)"
     tag += ", graphed" if graph else ""
     log(f"pool step split ({tag}): wall {wall_ms:.3f} ms/step (steps "
-        f"{warm + 1}-{warm + steps}, profiler off); steps {warm + steps + 1}-"
-        f"{warm + 2 * steps} profiled: wall {prof_ms:.3f} ms/step, device busy "
+        f"{warm + 1}-{warm + steps}, profiler off); step {warm + steps + 1}: {n_ops} aten "
+        f"ops dispatched by the host; steps {warm + steps + 2}-"
+        f"{warm + 2 * steps + 1} profiled: wall {prof_ms:.3f} ms/step, device busy "
         f"{dev_ms:.3f} ms/step ({n_launch:.0f} kernels/step), traversal kernels "
-        f"{trav_ms:.3f} ms/step [{shares}], rest {dev_ms - trav_ms:.3f} ms/step ({card})")
+        f"{trav_ms:.3f} ms/step [{shares}], rest {dev_ms - trav_ms:.3f} ms/step; CUDA "
+        f"runtime a step: graph launches {replays}, launches/copies/fills outside a graph "
+        f"{host_launches} ({card})")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
@@ -496,7 +542,8 @@ def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None, graph
                                        > STEP_SLACK[renderer.kernel]):
         raise AssertionError(f"a {renderer.kernel} pool step launched {n_launch} kernels, not "
                              f"{STEP_LAUNCHES[renderer.kernel]}")
-    return n_launch, wall_ms, dev_ms
+    return {"launches": n_launch, "wall_ms": wall_ms, "busy_ms": dev_ms, "ops": n_ops,
+            "replays": replays, "host_launches": host_launches}
 
 
 def device_split(tag, fn, card, names, absent=(), required=True):
@@ -1752,9 +1799,11 @@ def f64_phase(dev, card):
             "trace_ms": ms_g}
 
 
-def pool_rate(pack, static, camera, dev, kernel, mesh):
+def pool_rate(pack, static, camera, dev, kernel, mesh, step=None):
     """One full pool render of `camera`'s image at LANES lanes, sharded over
-    `mesh` (None: the one-device step): (accum, metrics, seconds)."""
+    `mesh` (None: the one-device step), through `step` (a make_step of
+    these arguments; a new one, captured in the render, by default):
+    (accum, metrics, seconds)."""
     from rust_raytracer_torch.render import pool as poolmod
     from rust_raytracer_torch.utils.metrics import RenderMetrics
 
@@ -1763,7 +1812,7 @@ def pool_rate(pack, static, camera, dev, kernel, mesh):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     accum = poolmod.render_pool(pack, static, camera, n_pixels, SPP, LANES, dev, metrics=m,
-                                kernel=kernel, mesh=mesh)
+                                kernel=kernel, mesh=mesh, step=step)
     torch.cuda.synchronize()
     return accum, m, time.perf_counter() - t0
 
@@ -1771,9 +1820,13 @@ def pool_rate(pack, static, camera, dev, kernel, mesh):
 def mesh_phase(renderer, wf_renderer, b_renderer, camera, wf_overflow, dev, card):
     """Phase 23: cornell_dragon at the main path's size through every kernel
     on a mesh of the one card: the BVH8 pool (K1) with make_mesh(1) and two
-    shards on the card, against the unsharded pool (issued = total, K1
-    launches = shards x steps, image within float order, rates side by
-    side); the wavefront pool (fused K2a+K2b, K2c) with make_mesh(1), its
+    shards on the card, each shard's state on its device, against the
+    unsharded pool (issued = total, K1 launches = shards x steps, image
+    within float order, rates side by side, each render cold with its
+    captures and warm through the same step); the two-shard step graphed
+    against eager shard for shard over 20 steps, and its graphed step
+    split beside the unsharded one's (no aten op dispatched besides the
+    replays); the wavefront pool (fused K2a+K2b, K2c) with make_mesh(1), its
     overflow equal to the unsharded wavefront render's; the batch render
     through K3 with 1 and 2 shards (images compared, pixels not bit-equal
     counted); train_step_fn at GRAD_LANES lanes through K3 with 1 and 2
@@ -1798,24 +1851,60 @@ def mesh_phase(renderer, wf_renderer, b_renderer, camera, wf_overflow, dev, card
         for name in wf.KERNELS:
             wf.launches[name], wf.plain_calls[name] = 0, 0
 
-    base, base_m, base_s = pool_rate(pack, static, camera, dev, "auto", None)
+    def make_step(mesh):
+        from rust_raytracer_torch.render import pool as poolmod
+        return poolmod.make_step(pack, static, camera, total, SPP, 0, mesh=mesh)
+
+    # each render twice through one step: cold (its graphs captured in it)
+    # and warm
+    base_step = make_step(None)
+    base, base_m, base_s = pool_rate(pack, static, camera, dev, "auto", None, base_step)
+    base_warm = pool_rate(pack, static, camera, dev, "auto", None, base_step)[2]
     base_img = (base / SPP).reshape(camera.image_height, camera.image_width, 3).cpu().numpy()
+    warm = {}
     for tag, mesh in (("make_mesh(1)", one), ("2 shards on one card", two)):
-        reset()
-        accum, m, secs = pool_rate(pack, static, camera, dev, "auto", mesh)
-        k1 = bvh8.launches
-        img = (accum / SPP).reshape(base_img.shape).cpu().numpy()
-        agree, rel = image_agreement(img, base_img)
-        log(f"mesh pool, K1, {tag}: {total / secs:.1f} pixel-samples/s ({secs:.3f} s) beside "
-            f"the unsharded pool's {total / base_s:.1f} ({base_s:.3f} s) in this run, "
-            f"{m.steps} steps ({base_m.steps} unsharded), issued {m.samples_issued} of "
-            f"{total}, K1 launches {k1} = {mesh.n_shards} x {m.steps}; image vs unsharded: "
-            f"pixel agreement {agree:.6f}, mean |d|/mean {rel:.3e} ({card})")
-        if not (m.samples_issued == total and k1 == mesh.n_shards * m.steps
-                and bvh8.plain_calls == 0 and agree >= 0.999 and rel <= 1e-5):
-            raise AssertionError(f"the sharded pool ({tag}) disagrees with the unsharded one")
-        launches["bvh8_traverse"] += k1
+        step = make_step(mesh)
+        for run in ("cold", "warm"):
+            reset()
+            accum, m, secs = pool_rate(pack, static, camera, dev, "auto", mesh, step)
+            k1 = bvh8.launches
+            img = (accum / SPP).reshape(base_img.shape).cpu().numpy()
+            agree, rel = image_agreement(img, base_img)
+            ref_s = base_s if run == "cold" else base_warm
+            log(f"mesh pool, K1, {tag}, {run}: {total / secs:.1f} pixel-samples/s ({secs:.3f} "
+                f"s) beside the unsharded pool's {total / ref_s:.1f} ({ref_s:.3f} s, {run}) in "
+                f"this run ({ref_s / secs:.3f}x), {m.steps} steps ({base_m.steps} unsharded), "
+                f"issued {m.samples_issued} of {total}, K1 launches {k1} = {mesh.n_shards} x "
+                f"{m.steps}; image vs unsharded: pixel agreement {agree:.6f}, mean |d|/mean "
+                f"{rel:.3e} ({card})")
+            if not (m.samples_issued == total and k1 == mesh.n_shards * m.steps
+                    and bvh8.plain_calls == 0 and agree >= 0.999 and rel <= 1e-5):
+                raise AssertionError(f"the sharded pool ({tag}) disagrees with the unsharded "
+                                     f"one")
+            launches["bvh8_traverse"] += k1
+        warm[mesh.n_shards] = secs
+        del step
         step_split(renderer, camera, card, ("bvh8_traverse",), steps=3, mesh=mesh)
+
+    # the two-shard step graphed: one replay a shard and nothing else, held
+    # against the eager step shard for shard, beside the unsharded step
+    lane_state_parity(renderer, "auto", camera, dev, card, ("bvh8_traverse",), mesh=two)
+    one_card = step_split(renderer, camera, card, ("bvh8_traverse",), steps=3, graph=True)
+    split2 = step_split(renderer, camera, card, ("bvh8_traverse",), steps=3, mesh=two,
+                        graph=True)
+    log(f"mesh pool step, graphed, 2 shards on one card / unsharded: wall "
+        f"{split2['wall_ms']:.3f} / {one_card['wall_ms']:.3f} ms a step, device busy "
+        f"{split2['busy_ms']:.3f} / {one_card['busy_ms']:.3f} ms a step (wall / busy "
+        f"{split2['wall_ms'] / split2['busy_ms']:.3f} / "
+        f"{one_card['wall_ms'] / one_card['busy_ms']:.3f}), kernels {split2['launches']:.0f} / "
+        f"{one_card['launches']:.0f} a step; the host a step: aten ops dispatched "
+        f"{split2['ops']} / {one_card['ops']}, graph launches {split2['replays']} / "
+        f"{one_card['replays']}, launches, copies and fills outside a graph "
+        f"{split2['host_launches']} / {one_card['host_launches']}; warm render rate 2 "
+        f"shards / unsharded {base_warm / warm[2]:.3f}x ({card})")
+    if split2["ops"]:
+        raise AssertionError(f"the graphed two-shard step dispatched {split2['ops']} ops "
+                             f"besides its replays")
 
     reset()
     accum, m, secs = pool_rate(wf_renderer.pack, wf_renderer.static, camera, dev, "wavefront",
@@ -1924,8 +2013,11 @@ def mesh_phase(renderer, wf_renderer, b_renderer, camera, wf_overflow, dev, card
 
 def sharded_checkpoint(pack, static, camera, dev, card):
     """Phase 24: a 2-shard pool state of the main path (2 shards on the one
-    card) saved after 20 steps and loaded; 20 more steps from each: lane
-    state equal bit for bit, next_flat per shard equal.  The file's size
+    card, each shard's state its graphed step's buffers) saved after 20
+    steps in the stacked layout and loaded back on the mesh, shard for
+    shard; 20 more steps from each (the loaded one through a step of its
+    own: a graphed sharded step donates its state): lane state equal bit
+    for bit, next_flat per shard equal, shard for shard.  The file's size
     and its save and load times at LANES lanes."""
     from rust_raytracer_torch.parallel import mesh as pmesh
     from rust_raytracer_torch.render import checkpoint as ckpt
@@ -1933,8 +2025,9 @@ def sharded_checkpoint(pack, static, camera, dev, card):
 
     mesh = pmesh.make_mesh(device=[dev, dev])
     n_pixels = camera.image_width * camera.image_height
-    step = poolmod.make_step(pack, static, camera, n_pixels * SPP, SPP, 0, mesh=mesh)
-    state = poolmod.init_state(LANES, n_pixels, dev, n_shards=2)
+    args = (pack, static, camera, n_pixels * SPP, SPP, 0)
+    step, step_b = (poolmod.make_step(*args, mesh=mesh) for _ in range(2))
+    state = poolmod.init_shards(LANES, n_pixels, mesh)
     for _ in range(20):
         state = step(pack, state)
     path = os.path.join(HERE, "build", "chip_smoke_sharded.npz")
@@ -1943,28 +2036,34 @@ def sharded_checkpoint(pack, static, camera, dev, card):
     ckpt.save_pool_state(path, state, {"step_count": 20})
     save_s = time.perf_counter() - t0
     size = os.path.getsize(path)
+    with np.load(path) as z:
+        shapes = {f: z[f].shape for f in ("accum", "next_flat")}
+        at_20 = z["next_flat"].tolist()
     t0 = time.perf_counter()
-    loaded, _ = ckpt.load_pool_state(path, dev)
+    loaded, _ = ckpt.load_pool_state(path, dev, mesh)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    if loaded.accum.shape != state.accum.shape or not all(
-            torch.equal(getattr(loaded, f), getattr(state, f)) for f in poolmod.PoolState._fields):
+    if not (isinstance(loaded, poolmod.ShardedState) and len(loaded) == 2 and all(
+            torch.equal(getattr(x, f), getattr(y, f))
+            for x, y in zip(loaded, state) for f in poolmod.PoolState._fields)):
         raise AssertionError("the reloaded sharded checkpoint differs from the saved state")
     a, b = state, loaded
     for _ in range(20):
-        a, b = step(pack, a), step(pack, b)
+        a, b = step(pack, a), step_b(pack, b)
     lane = poolmod.PoolState._fields[:8] + ("next_flat", "overflow")
-    same = [f for f in lane if torch.equal(getattr(a, f), getattr(b, f))]
-    d_acc = (a.accum - b.accum).abs().max().item()
-    scale = a.accum.abs().max().item()
-    log(f"sharded checkpoint on the card (2 shards, {LANES} lanes, cornell_dragon "
-        f"{camera.image_width}x{camera.image_height}): accum {tuple(state.accum.shape)}, "
-        f"next_flat {state.next_flat.tolist()} at step 20, file {size} bytes, save "
-        f"{save_s * 1e3:.1f} ms, load {load_s * 1e3:.1f} ms; 20 steps on from the file vs "
-        f"straight on: lane state equal bit for bit ({len(same)} of {len(lane)} fields), "
-        f"next_flat {a.next_flat.tolist()} vs {b.next_flat.tolist()}, accum max |d| "
-        f"{d_acc:.3e} of {scale:.3e} ({card})")
-    if len(same) != len(lane) or d_acc > 1e-5 * scale:
+    same = [f"{f} (shard {i})" for i, (x, y) in enumerate(zip(a, b)) for f in lane
+            if torch.equal(getattr(x, f), getattr(y, f))]
+    d_acc = max((x.accum - y.accum).abs().max().item() for x, y in zip(a, b))
+    scale = max(x.accum.abs().max().item() for x in a)
+    log(f"sharded checkpoint on the card (2 shards on one card, {LANES} lanes, cornell_dragon "
+        f"{camera.image_width}x{camera.image_height}): file accum {shapes['accum']}, next_flat "
+        f"{at_20} at step 20, {size} bytes, save {save_s * 1e3:.1f} ms, load on the mesh "
+        f"{load_s * 1e3:.1f} ms, each shard's state equal to the saved one; 20 steps on from "
+        f"the file vs straight on: lane state equal bit for bit shard for shard ({len(same)} "
+        f"of {2 * len(lane)} fields), next_flat {[int(x.next_flat) for x in a]} vs "
+        f"{[int(y.next_flat) for y in b]}, accum max |d| {d_acc:.3e} of {scale:.3e} ({card})")
+    if (len(same) != 2 * len(lane) or d_acc > 1e-5 * scale
+            or shapes != {"accum": (2, n_pixels, 3), "next_flat": (2,)}):
         raise AssertionError("the sharded pool resumed from its checkpoint diverged")
     os.unlink(path)
     return {"bytes": size, "save_ms": save_s * 1e3, "load_ms": load_s * 1e3}
@@ -2045,39 +2144,56 @@ def the_capture(step):
     return cap
 
 
-def lane_state_parity(r, kernel, camera, dev, card, names, steps=20):
+def lane_state_parity(r, kernel, camera, dev, card, names, steps=20, mesh=None):
     """Eager and graphed pool steps of renderer `r` from one start state, in
     turns, `steps` each: every lane field bit-equal, the accumulator within
     float order (index_add on the card sums in no fixed order), and the
     graphed steps' launches of each traversal kernel in `names` equal to
-    the steps.  Returns the accumulator's max |d|."""
+    the steps (times the shards).  With `mesh`, the sharded steps from each
+    shard's state on its device, held shard for shard; each shard's graphed
+    step donates its state (the same buffers every step).  Returns the
+    accumulator's max |d|."""
     from rust_raytracer_torch.render import graphs
     from rust_raytracer_torch.render import pool as poolmod
 
     n_pixels = camera.image_width * camera.image_height
     args = (r.pack, r.static, camera, n_pixels * SPP, SPP, r.seed)
-    eager = poolmod.make_step(*args, kernel=kernel, graph=False)
-    graphed = poolmod.make_step(*args, kernel=kernel)
-    e = g = poolmod.init_state(LANES, n_pixels, dev)
+    eager = poolmod.make_step(*args, kernel=kernel, graph=False, mesh=mesh)
+    graphed = poolmod.make_step(*args, kernel=kernel, mesh=mesh)
+    if mesh is None:
+        e = g = poolmod.init_state(LANES, n_pixels, dev)
+    else:
+        e = g = poolmod.init_shards(LANES, n_pixels, mesh)
     launched = Counter()
+    held = None
     for _ in range(steps):
         e = eager(r.pack, e)
         before = graphs.launch_counts()
         g = graphed(r.pack, g)
         launched.update({k: v - before[k] for k, v in graphs.launch_counts().items()})
+        if mesh is not None:
+            held = held or [s.org for s in g]
+            if any(s.org is not h for s, h in zip(g, held)):
+                raise AssertionError("a graphed shard step returned new tensors, not its "
+                                     "buffers")
     torch.cuda.synchronize()
     lane = ("org", "dirn", "throughput", "radiance", "pixel", "sample", "bounce", "active",
             "next_flat", "overflow")
-    differ = [f for f in lane if not torch.equal(getattr(e, f), getattr(g, f))]
-    d_acc = float((e.accum - g.accum).abs().max())
-    scale = float(e.accum.abs().max())
+    pairs = [(e, g)] if mesh is None else list(zip(e, g))
+    differ = [f + ("" if mesh is None else f" (shard {i})") for i, (a, b) in enumerate(pairs)
+              for f in lane if not torch.equal(getattr(a, f), getattr(b, f))]
+    d_acc = max(float((a.accum - b.accum).abs().max()) for a, b in pairs)
+    scale = max(float(a.accum.abs().max()) for a, _ in pairs)
     launched = {k: v for k, v in launched.items() if v}
-    log(f"graph lane state, {kernel}: {steps} eager and {steps} graphed steps in turns from "
-        f"one start: lane fields not bit-equal {differ or 'none'} (of {len(lane)}), accum "
-        f"max |d| {d_acc:.3e} of {scale:.3e} (float order), graphed launches {launched}, "
-        f"capture {the_capture(graphed).seconds:.2f} s ({card})")
-    if differ or d_acc > 1e-5 * scale or launched != {nm: steps for nm in names}:
-        raise AssertionError(f"graphed {kernel} steps differ from the eager ones")
+    caps = [graphed] if mesh is None else graphed.shard_steps
+    capture_s = sum(the_capture(c).seconds for c in caps)
+    tag = kernel if mesh is None else f"{kernel}, {mesh.n_shards} shards"
+    log(f"graph lane state, {tag}: {steps} eager and {steps} graphed steps in turns from "
+        f"one start: lane fields not bit-equal {differ or 'none'} (of {len(lane)} a shard, "
+        f"{len(pairs)} shard(s)), accum max |d| {d_acc:.3e} of {scale:.3e} (float order), "
+        f"graphed launches {launched}, captures {len(caps)}, {capture_s:.2f} s ({card})")
+    if differ or d_acc > 1e-5 * scale or launched != {nm: steps * len(pairs) for nm in names}:
+        raise AssertionError(f"graphed {tag} steps differ from the eager ones")
     return d_acc
 
 

@@ -6,15 +6,21 @@ device mesh with shard_map, replicates the ScenePack on every device and
 reduces with psum.  Here a `Mesh` lists the shards of this process (each a
 device, which may repeat: two shards on one card, or n shards on the CPU)
 and places them in a global order over the processes of a torch.distributed
-group (`init_multihost`).  A sharded function runs its shards one after
-another, each on its own device with a replica of the pack, and the
+group (`init_multihost`).  A sharded function issues its shards' work one
+after another, each on its own device with a replica of the pack, and the
 processes combine their results with all_gather / all_reduce.  The RNG is
 keyed by (pixel, sample, bounce), so a lane's radiance does not depend on
 the shard that traced it.
 
-One process drives its shards in turn, so shards on distinct devices of one
-process do not run concurrently; across devices, start one process a device
-(`init_multihost`), as torch.distributed does.
+Shards on distinct cards of one process run at the same time where the
+host issues their work without waiting in between: the sharded pool
+(render/pool.py keeps each shard's state on its device and joins only at a
+poll, at the end and at a checkpoint), the batch program a batch
+(render/renderer.py:BatchRun) and `train_step_fn` (every shard's inputs
+copied first, then every shard's step, then the sums).  `shard_batch_fn`,
+the batch trace's eager plain version, reads the device back each bounce,
+so its shards run one after another.  One process a card
+(`init_multihost`) is the other way to run a mesh over several cards.
 """
 from __future__ import annotations
 
@@ -207,10 +213,13 @@ def train_step_fn(batch_fn, loss_of_radiance, mesh: Mesh, kernel: str = "auto",
     render/graphs.applies for it) each shard's forward and backward pass is
     one replay of a graphs.GraphedGrad, captured at the first step on each
     device and replayed at every seed; graph=False keeps them eager, the
-    reference the graphs are held against.  The cross-shard sums, the
-    copies home and the all-reduce run eagerly around them.  A pack on
-    another device than a shard's is copied there once, and its float
-    tables copied in again each step."""
+    reference the graphs are held against.  A pack on another device than
+    a shard's is copied there once, and its float tables copied in again
+    each step.  A step copies every shard's inputs first, then issues every
+    shard's pass, then sums in shard order: a copy from the pack's device
+    runs on that device's stream, so one queued behind a shard's pass
+    there would hold the next shard's pass back until it ended.  The
+    copies home, the sums and the all-reduce run eagerly."""
     def shard_loss(p, px, py, sample, seed, target):
         return loss_of_radiance(batch_fn(p, px, py, sample, seed), target)
 
@@ -232,16 +241,16 @@ def train_step_fn(batch_fn, loss_of_radiance, mesh: Mesh, kernel: str = "auto",
     def step(pack, px, py, sample, seed, target):
         fields = pack.float_fields()
         home = pack.device
+        staged = [(dev, replica(pack, dev),
+                   (px[sl].to(dev), py[sl].to(dev), sample[sl].to(dev),
+                    torch.as_tensor(seed, dtype=torch.int64).to(dev), target[sl].to(dev)))
+                  for dev, sl in zip(mesh.devices, lane_slices(mesh, px.shape[0]))]
+        parts = [graphed(p, *lanes) if graph and graphs.applies(dev, kernel, p)
+                 else graphs.value_and_grad(shard_loss, p.with_grad(), *lanes)
+                 for dev, p, lanes in staged]
         loss = torch.zeros((), dtype=pack.dtype, device=home)
         grads = [torch.zeros_like(getattr(pack, f)) for f in fields]
-        for dev, sl in zip(mesh.devices, lane_slices(mesh, px.shape[0])):
-            p = replica(pack, dev)
-            lanes = (px[sl].to(dev), py[sl].to(dev), sample[sl].to(dev),
-                     torch.as_tensor(seed, dtype=torch.int64).to(dev), target[sl].to(dev))
-            if graph and graphs.applies(dev, kernel, p):
-                part, part_grads = graphed(p, *lanes)
-            else:
-                part, part_grads = graphs.value_and_grad(shard_loss, p.with_grad(), *lanes)
+        for part, part_grads in parts:
             loss = loss + part.to(home)
             grads = [acc + gi.to(home) for acc, gi in zip(grads, part_grads)]
         return (all_reduce_sum(mesh, loss),

@@ -33,8 +33,9 @@ a walk that launches a traversal kernel (`applies`).  The "jnp" walk
 run eagerly; so does a step under metrics.debug_nans, whose check reads
 the outputs back, and everything while RRT_WF_CHECK asks the wavefront
 walk to print its overflow.  Around the graphs, the host still runs the
-pool's poll and refill reads, the batch render's one wait a batch, and a
-sharded step's slicing, copies and cross-shard sums.  `integrator.trace`
+pool's poll reads (one a device with a mesh; a sharded pool step is one
+replay a shard and nothing else), the batch render's one wait a batch,
+and train_step_fn's copies and cross-shard sums.  `integrator.trace`
 (non-differentiable, with its one `alive.any()` read a bounce) always runs
 eagerly: it is the batch program's plain version.  A capture or replay
 that fails raises; nothing carries on eagerly.
@@ -145,13 +146,21 @@ class GraphedStep:
     each replay advances them by the warm-up's count.  Under
     metrics.debug_nans the step runs `fn` eagerly.
 
+    With `donate`, the step returns the buffers themselves, as the
+    reference's donated state: a step issues the replay and nothing else,
+    and the state it returned last is overwritten by its next call.  Such
+    a step holds one chain; a state other than the one it returned last is
+    copied in as above, over that one.
+
     `capture(body, device)` returns the graph of `body` (default
     `cuda_capture`); a test may stand in for it.
     """
 
-    def __init__(self, fn: Callable, capture: Optional[Callable] = None):
+    def __init__(self, fn: Callable, capture: Optional[Callable] = None,
+                 donate: bool = False):
         self.fn = fn
         self._capture = capture
+        self.donate = donate
         self.captures: Dict[torch.device, Capture] = {}
         self._last = ()
 
@@ -170,7 +179,7 @@ class GraphedStep:
         counts = launch_counts()
         cap.graph.replay()
         _set_launches({k: n + cap.launched.get(k, 0) for k, n in counts.items()})
-        out = type(state)(*(buf.clone() for buf in cap.inputs))
+        out = cap.inputs if self.donate else type(state)(*(buf.clone() for buf in cap.inputs))
         self._last = tuple((weakref.ref(t), t._version) for t in out)
         return out
 

@@ -20,11 +20,17 @@ jitted step with its state donated; on the CPU it runs eagerly.
 With a `mesh` (parallel/mesh.py) the lane axis is sharded as the
 reference's shard_map shards it: the lanes split evenly, and shard s owns a
 contiguous slice of the job grid (`_shard_quota`), an accumulator plane and
-its job counter, so the state carries the reference's shard axis (`accum`
-(n_shards, n_pixels, 3), `next_flat` and `overflow` (n_shards,)) and a
-checkpoint of it is interchangeable with the reference's.  Each shard
-compaction-sorts only its own lanes.  Without a mesh the state has no shard
-axis and the step is the one-device step.
+its job counter.  The state is a `ShardedState`, one PoolState a shard of
+this process made on that shard's device (`init_shards`), the port's
+NamedSharding-placed state: each step advances every shard's state on its
+own device, and no lane, plane or counter moves between polls.  The joins
+are the reference's: a poll reads each device's counts (`shard_sums`), the
+image is the planes' sum in shard order (`sum_planes`), and a checkpoint
+or a check reads the stacked layout (`join_field`: the reference's shard
+axis, `accum` (n_shards, n_pixels, 3), `next_flat` and `overflow`
+(n_shards,)), so a checkpoint is interchangeable with the reference's.
+Each shard compaction-sorts only its own lanes.  Without a mesh the state
+is one PoolState with no shard axis and the step is the one-device step.
 
 `poll_loop` is the host loop that render_pool and
 render/checkpoint.py:render_pool_resumable share.
@@ -76,6 +82,60 @@ def init_state(n_lanes: int, n_pixels: int, device, dtype=torch.float32,
     )
 
 
+# PoolState's fields with one row a lane; the rest have one a shard
+LANE_FIELDS = PoolState._fields[:8]
+
+
+class ShardedState(tuple):
+    """The pool state of this process's shards: one PoolState a shard, on
+    that shard's device, with its n_lanes / n_shards lanes, its plane
+    `accum` (n_pixels, 3) and its 0-d `next_flat` and `overflow`.  A field
+    read by name (`state.accum`) is the stacked layout, joined by
+    `join_field`: for checks and checkpoints, never inside a step."""
+    __slots__ = ()
+
+    def __getattr__(self, name):
+        if name not in PoolState._fields:
+            raise AttributeError(name)
+        return join_field(self, name)
+
+
+def join_field(state: ShardedState, name: str, device=None) -> torch.Tensor:
+    """Field `name` of the shards in the stacked layout, on `device` (the
+    first shard's by default): a lane field concatenated in shard order,
+    accum, next_flat and overflow stacked on a shard axis."""
+    device = state[0].org.device if device is None else device
+    parts = [getattr(s, name).to(device) for s in state]
+    return torch.cat(parts) if name in LANE_FIELDS else torch.stack(parts)
+
+
+def place_state(state: PoolState, mesh: pmesh.Mesh) -> ShardedState:
+    """A stacked state of this process's shards (init_state with n_shards,
+    a loaded checkpoint; a state without the shard axis is one shard) split
+    into a ShardedState, each shard's part copied to its device: the
+    reference's device_put of the state, done once."""
+    planes = state.accum if state.accum.ndim == 3 else state.accum[None]
+    if planes.shape[0] != mesh.n_local:
+        raise ValueError(f"a state of {planes.shape[0]} shard(s) on a mesh of "
+                         f"{mesh.n_local} local shard(s)")
+    nf, ov = state.next_flat.reshape(-1), state.overflow.reshape(-1)
+    per = state.org.shape[0] // mesh.n_local
+    return ShardedState(
+        PoolState(*(getattr(state, f)[i * per:(i + 1) * per].to(dev, copy=True)
+                    for f in LANE_FIELDS),
+                  accum=planes[i].to(dev, copy=True), next_flat=nf[i].to(dev, copy=True),
+                  overflow=ov[i].to(dev, copy=True))
+        for i, dev in enumerate(mesh.devices))
+
+
+def init_shards(n_lanes: int, n_pixels: int, mesh: pmesh.Mesh,
+                dtype=torch.float32) -> ShardedState:
+    """The empty pool of `n_lanes` lanes over all of `mesh`'s shards: this
+    process's shards' states, each made on its device."""
+    per = n_lanes // mesh.n_shards
+    return ShardedState(init_state(per, n_pixels, dev, dtype) for dev in mesh.devices)
+
+
 def _shard_quota(shard: int, n_shards: int, total: int):
     """Contiguous balanced partition of [0, total): shard s owns
     [start, start + quota) (the reference's _shard_quota)."""
@@ -96,42 +156,40 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
     a step.  graph=False keeps it eager there too, as on the CPU: the
     reference the graphed step is held against.
 
-    With `mesh`, the step runs this process's shards: the state's lanes
-    split evenly over them in order, shard i (global shard mesh.first + i)
-    steps its lanes on its device with accum[i], next_flat[i] and
-    overflow[i], issuing from its own job-grid slice; each shard's step is
-    graphed on its device, and the slicing and joining around them run
-    eagerly.  A state without the shard axis is taken as one shard."""
+    With `mesh`, the step maps a ShardedState of this process's shards to
+    the next one: shard i (global shard mesh.first + i) steps its own state
+    on its device, issuing from its own job-grid slice, and nothing is
+    joined or copied between shards.  On the card each shard's step is one
+    replay of its own graph, which reads and writes its state's buffers in
+    place (GraphedStep with donate: the state a step returned is
+    overwritten by the next call, so a chain needs a step of its own), and
+    the replays are issued one after another with no host wait: on
+    distinct cards they run at the same time.  A stacked state
+    (init_state with n_shards, a loaded checkpoint) is placed once
+    (`place_state`) at the step that receives it.  `step.shard_steps`
+    holds the shards' own steps, in order."""
     total = int(total)
 
-    def local(dev, job_base, quota):
+    def local(dev, job_base, quota, donate=False):
         fn = _local_step(static, camera, spp, seed, kernel, job_base, quota)
-        return graphs.GraphedStep(fn) if graph and graphs.applies(dev, kernel, pack) else fn
+        if graph and graphs.applies(dev, kernel, pack):
+            return graphs.GraphedStep(fn, donate=donate)
+        return fn
 
     if mesh is None:
         return local(pack.device, 0, total)
-    shards = [(dev, local(dev, *_shard_quota(mesh.first + i, mesh.n_shards, total)))
+    shards = [(dev, local(dev, *_shard_quota(mesh.first + i, mesh.n_shards, total),
+                          donate=True))
               for i, dev in enumerate(mesh.devices)]
     replica = pmesh.replicas(pack)
 
-    def step(pack_, s: PoolState) -> PoolState:
-        planes = s.accum if s.accum.ndim == 3 else s.accum[None]
-        nf = s.next_flat.reshape(-1)
-        ov = s.overflow.reshape(-1)
-        per = s.org.shape[0] // len(shards)
-        home = s.org.device
-        outs = []
-        for i, (dev, local) in enumerate(shards):
-            lanes = {f: getattr(s, f)[i * per:(i + 1) * per].to(dev)
-                     for f in PoolState._fields[:8]}
-            sub = PoolState(**lanes, accum=planes[i].to(dev), next_flat=nf[i].to(dev),
-                            overflow=ov[i].to(dev))
-            outs.append(local(replica(dev) if pack_ is pack else pack_.to(dev), sub))
-        lanes = {f: torch.cat([getattr(o, f).to(home) for o in outs])
-                 for f in PoolState._fields[:8]}
-        return PoolState(**lanes, **{f: torch.stack([getattr(o, f).to(home) for o in outs])
-                                     for f in PoolState._fields[8:]})
+    def step(pack_, s: ShardedState) -> ShardedState:
+        if not isinstance(s, ShardedState):
+            s = place_state(s, mesh)
+        return ShardedState(local(replica(dev) if pack_ is pack else pack_.to(dev), part)
+                            for (dev, local), part in zip(shards, s, strict=True))
 
+    step.shard_steps = tuple(local for _, local in shards)
     return step
 
 
@@ -234,21 +292,56 @@ def host_sums(mesh: Optional[pmesh.Mesh], *tensors):
     return tuple(int(x) for x in pmesh.all_reduce_sum(mesh, torch.stack(sums)).tolist())
 
 
-def poll_loop(pack, step, state: PoolState, total: int, max_steps: int,
+def shard_sums(mesh: Optional[pmesh.Mesh], state: ShardedState, fields) -> tuple:
+    """The sums of the named `fields` over the shards of `state`, as host
+    ints: one small read a device (the shards of a device summed there
+    first), all-reduced over the mesh's processes as host_sums."""
+    by_dev = {}
+    for s in state:
+        v = torch.stack([getattr(s, f).sum() for f in fields])
+        dev = s.org.device
+        by_dev[dev] = v if dev not in by_dev else by_dev[dev] + v
+    sums = [sum(col) for col in zip(*(v.tolist() for v in by_dev.values()))]
+    if mesh is None or not mesh.multiprocess:
+        return tuple(sums)
+    return tuple(int(x) for x in pmesh.all_reduce_sum(mesh, torch.tensor(sums)).tolist())
+
+
+def sum_planes(mesh: pmesh.Mesh, state: ShardedState, device) -> torch.Tensor:
+    """The image of a sharded render: the shards' planes copied to `device`
+    and added there in shard order (the same image from run to run), then
+    all-reduced over the mesh's processes (the reference's join-and-sum)."""
+    image = state[0].accum.to(device, copy=True)
+    for s in state[1:]:
+        image += s.accum.to(device)
+    return pmesh.all_reduce_sum(mesh, image)
+
+
+# what a poll of a sharded state reads, in one read a device
+POLL_FIELDS = ("next_flat", "active", "overflow")
+
+
+def poll_loop(pack, step, state, total: int, max_steps: int,
               steps_per_poll: int = STEPS_PER_POLL, done_steps: int = 0,
               on_poll: Optional[Callable] = None, mesh: Optional[pmesh.Mesh] = None):
     """Run `step` steps_per_poll at a time until every job is issued and no
-    lane is active (`host_sums`, one host read a poll), or max_steps.
-    `on_poll(state, done_steps, issued, n_active)` is called after each
-    poll.  With a mesh across processes the counts are the global ones, so
-    every process stops at the same poll.  Returns (state, done_steps)."""
+    lane is active (one host read a poll: `host_sums`, or `shard_sums` of a
+    ShardedState), or max_steps.  `on_poll(state, done_steps, issued,
+    n_active, overflow)` is called after each poll; `overflow`, the
+    wavefront overflow packets, was read with the counts of a ShardedState
+    and is None otherwise.  With a mesh across processes the counts are the
+    global ones, so every process stops at the same poll.  Returns (state,
+    done_steps)."""
     while done_steps < max_steps:
         for _ in range(steps_per_poll):
             state = step(pack, state)
         done_steps += steps_per_poll
-        issued, n_active = host_sums(mesh, state.next_flat, state.active)
+        if isinstance(state, ShardedState):
+            issued, n_active, overflow = shard_sums(mesh, state, POLL_FIELDS)
+        else:
+            (issued, n_active), overflow = host_sums(mesh, state.next_flat, state.active), None
         if on_poll is not None:
-            on_poll(state, done_steps, issued, n_active)
+            on_poll(state, done_steps, issued, n_active, overflow)
         if issued >= total and n_active == 0:
             break
     return state, done_steps
@@ -265,8 +358,9 @@ def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     steps, the live lanes, the jobs issued and the wavefront overflow
     packets out of all 8-lane packets traced, as the reference's pool
     does.  With `mesh`, n_lanes (a multiple of the shard count) is the
-    global pool, of which this process holds its shards' share; the result
-    is the sum of every shard's plane, the same in every process.  `step`,
+    global pool, of which this process holds its shards' share, each
+    shard's state on its device (`init_shards`); the result is the sum of
+    every shard's plane on `device`, the same in every process.  `step`,
     if given, is the make_step of these arguments, built before (a
     Renderer keeps its step, and with it the graphs it captured).
     """
@@ -274,18 +368,20 @@ def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     n_shards = 1 if mesh is None else mesh.n_shards
     if n_lanes % n_shards:
         raise ValueError(f"n_lanes {n_lanes} not divisible by {n_shards} shards")
-    local_lanes = n_lanes if mesh is None else n_lanes // n_shards * mesh.n_local
-    state = init_state(local_lanes, n_pixels, device, dtype,
-                       n_shards=None if mesh is None else mesh.n_local)
+    if mesh is None:
+        state = init_state(n_lanes, n_pixels, device, dtype)
+    else:
+        state = init_shards(n_lanes, n_pixels, mesh, dtype)
     if step is None:
         step = make_step(pack, static, camera, total, spp, seed, kernel=kernel, mesh=mesh)
 
-    def on_poll(state, done_steps, issued, n_active):
+    def on_poll(state, done_steps, issued, n_active, overflow):
         if metrics is not None:
             # poll-granular: one sample covering STEPS_PER_POLL steps at
             # the end-of-poll occupancy
             metrics.record_step(n_active, n_lanes, issued, weight=STEPS_PER_POLL)
-            metrics.wf_overflow_packets = host_sums(mesh, state.overflow)[0]
+            metrics.wf_overflow_packets = (host_sums(mesh, state.overflow)[0]
+                                           if overflow is None else overflow)
             metrics.wf_total_packets = (n_lanes // 8) * done_steps
 
     state, _ = poll_loop(pack, step, state, total,
@@ -293,5 +389,4 @@ def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
                          on_poll=on_poll, mesh=mesh)
     if mesh is None:
         return state.accum
-    # the reference's join-and-sum of the per-shard accumulators
-    return pmesh.all_reduce_sum(mesh, state.accum.sum(0))
+    return sum_planes(mesh, state, device)

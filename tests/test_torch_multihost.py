@@ -35,6 +35,8 @@ _WORK = textwrap.dedent("""
     from rust_raytracer_torch.scene import compiler
     from rust_raytracer_torch.utils import metrics as metricsmod
 
+    JOINS = ("join_field", "place_state", "host_sums", "shard_sums", "sum_planes")
+
     def run(mesh, out):
         scene = models.build("test")
         pack, static = compiler.compile_scene(scene, "cpu")
@@ -55,8 +57,29 @@ _WORK = textwrap.dedent("""
         m = metricsmod.RenderMetrics()
         pool_cam = Camera(image_width=16, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
                           position=(0, 0, 1), look_at=(0, 0, 0), focal_length=50.0)
-        img = poolmod.render_pool(pack, static, pool_cam, 256, 4, 256, "cpu", seed=3,
-                                  mesh=mesh, metrics=m)
+        # the pool's joins (render/pool.py), counted by name, and its states
+        joins = {name: 0 for name in JOINS}
+        real = {name: getattr(poolmod, name) for name in JOINS}
+
+        def counted(name):
+            def call(*a, **k):
+                joins[name] += 1
+                return real[name](*a, **k)
+            return call
+
+        for name in JOINS:
+            setattr(poolmod, name, counted(name))
+        step = poolmod.make_step(pack, static, pool_cam, 256 * 4, 4, 3, mesh=mesh)
+        states = []
+        try:
+            img = poolmod.render_pool(pack, static, pool_cam, 256, 4, 256, "cpu", seed=3,
+                                      mesh=mesh, metrics=m,
+                                      step=lambda p, s: states.append(s) or step(p, s))
+        finally:
+            for name in JOINS:
+                setattr(poolmod, name, real[name])
+        kinds = {(int(isinstance(s, poolmod.ShardedState)), len(s), s[0].org.shape[0])
+                 for s in states}
         step = pmesh.train_step_fn(
             lambda *a: batch_fn(*a, differentiable=True),
             lambda r, t: ((r - t) ** 2).mean(), mesh)
@@ -74,7 +97,8 @@ _WORK = textwrap.dedent("""
         eager_img = r.render(mode="batch").hdr()
         np.savez(out, rad=rad.numpy(), img=img.numpy(), issued=m.samples_issued,
                  steps=m.steps, loss=float(loss), prog_img=prog_img, eager_img=eager_img,
-                 prog_batches=bm.batches,
+                 prog_batches=bm.batches, joins=[joins[name] for name in JOINS],
+                 state_kinds=np.array(sorted(kinds)),
                  **{"grad_" + f: g.numpy() for f, g in zip(pack.float_fields(), grads)})
 """)
 
@@ -159,6 +183,17 @@ def test_two_process_pool_image(results):
     assert int(two["steps"]) == int(rank1["steps"]) == int(one["steps"])
     np.testing.assert_array_equal(two["img"], rank1["img"])
     np.testing.assert_allclose(two["img"], one["img"], rtol=2e-5, atol=1e-6)
+
+
+def test_two_process_pool_keeps_each_shard_state(results):
+    """With two local shards a process (and four in the one process), every
+    pool step takes and gives each shard's own state, 64 lanes a shard, and
+    the render joins only at a poll (one count read each, all-reduced) and
+    at the end (one plane sum): no join inside a step, no placement."""
+    for res, n_local in ((results[0], 2), (results[1], 2), (results[2], 4)):
+        polls = int(res["steps"]) // 10
+        assert res["joins"].tolist() == [0, 0, 0, polls, 1], res["joins"]
+        assert res["state_kinds"].tolist() == [[1, n_local, 64]]
 
 
 def test_two_process_train_step(results):
