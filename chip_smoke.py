@@ -147,6 +147,23 @@ counts of what these rays need: a slab test is 25 operations, a
 Möller–Trumbore test 56; rays are read and results written once, and each
 distinct node and cluster touched is read once.
 
+Since phase 29's slice the path vertex runs as four hand-written kernels
+(rust_raytracer_torch/ops/vertex.py: KV1 vertex_hit, KV2 vertex_shade, KV3
+lane_update with its compaction_key, KV4 pool_refill) on every forward
+path: each pool step launches each once (phases 5, 11, 19, 20, 23 and 25
+count them = steps) and each batch bounce all but the refill (phases 15
+and 28); the fwd+bwd step and the f64 trace take the plain torch ops and
+launch none (phases 16 and 22).  Each path's log line says which route
+it took.  The graphed BVH8 pool step may hold at most
+MAX_STEP_KERNEL_NODES kernel nodes (phase 25).  Phase 29
+(scripts/vertex_parity.py) holds each vertex kernel against its plain
+version on the inputs of the BVH8 and the wavefront pool's first, a
+mid-render and a drain step at 2^18 lanes, of the fog scene (volume hits),
+of a card under a sky and a sun (with an aperture), and of a scene with
+every texture node kind and material: lanes not bit-equal and max |d| an
+output, within vertex_parity.TOLERANCE; then times each kernel against its
+plain version (CUDA events) beside its bound.
+
 Any failed check raises, so the exit code is non-zero.  The last two lines
 of standard output are a JSON line describing each kernel and the final
 JSON result line.
@@ -183,19 +200,47 @@ RAY_BYTES, HIT_BYTES = 28, 8   # org, dirn, t_max in; t, slot out
 CLUSTER_BYTES = 128 * 48       # one cluster's triangle rows
 KERNEL_REPS, PLAIN_REPS = 50, 3
 # kernels a steady cornell_dragon pool step launches eagerly, as measured on
-# the H100 since the shading's unit vector is built on the device (a zero
-# fill and a fill, where a host copy stood before): a scene without volumes
-# adds none to them (one volume adds tens of kernels to a step), and the
-# metrics recorder none at all.  The BVH8 step's count is exact; the
-# wavefront step's mean over five steps read 1738.8-1740.0 across runs, so
-# it is held within STEP_SLACK of its count.  A graphed step replays these
-# and 11 copies of the next state into the graph's buffers.
-STEP_LAUNCHES = {"auto": 1668, "wavefront": 1739}
+# the H100 since the path vertex runs as the kernels of ops/vertex.py
+# (before them 1668 and ~1739): the traversal, the four vertex kernels and
+# the key, the sort's, the index_add's and a few fills; a scene without
+# volumes adds none to them (one volume adds tens of kernels to a step),
+# and the metrics recorder none at all.  The BVH8 step's count is exact;
+# the wavefront step's mean over five steps varied by up to 2 across runs
+# before (its L1 stage), so it is held within STEP_SLACK of its count.  A
+# graphed step replays these and 11 copies of the next state into the
+# graph's buffers.
+STEP_LAUNCHES = {"auto": 32, "wavefront": 104}
 STEP_SLACK = {"auto": 0, "wavefront": 2}
+# the graphed BVH8 pool step's kernel nodes may not pass this (1,653 before
+# the vertex kernels)
+MAX_STEP_KERNEL_NODES = 150
+# the path vertex kernels (ops/vertex.py) a pool step launches once each,
+# and those a batch bounce launches (no refill)
+VERTEX_POOL = ("vertex_hit", "vertex_shade", "lane_update", "compaction_key", "pool_refill")
+VERTEX_BOUNCE = VERTEX_POOL[:4]
+VERTEX_SOURCES = dict(zip(VERTEX_POOL, ("vertex_hit.cu", "vertex_shade.cu", "lane_update.cu",
+                                        "lane_update.cu", "pool_refill.cu")))
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def reset_vertex():
+    """Set the path vertex kernels' launch and plain-call counts to 0."""
+    from rust_raytracer_torch.ops import vertex
+
+    torch.cuda.synchronize()
+    for name in vertex.KERNELS:
+        vertex.launches[name] = vertex.plain_calls[name] = 0
+
+
+def vertex_route():
+    """The route the path vertex took since reset_vertex, for the log."""
+    from rust_raytracer_torch.ops import vertex
+
+    return (f"vertex kernels launched {dict(vertex.launches)}, plain calls "
+            f"{ {k: v for k, v in vertex.plain_calls.items() if v} }")
 
 
 def card_line():
@@ -530,7 +575,7 @@ def step_split(renderer, camera, card, names, warm=10, steps=5, mesh=None, graph
         f"{warm + 1}-{warm + steps}, profiler off); step {warm + steps + 1}: {n_ops} aten "
         f"ops dispatched by the host; steps {warm + steps + 2}-"
         f"{warm + 2 * steps + 1} profiled: wall {prof_ms:.3f} ms/step, device busy "
-        f"{dev_ms:.3f} ms/step ({n_launch:.0f} kernels/step), traversal kernels "
+        f"{dev_ms:.3f} ms/step ({n_launch:.0f} kernels/step), named kernels "
         f"{trav_ms:.3f} ms/step [{shares}], rest {dev_ms - trav_ms:.3f} ms/step; CUDA "
         f"runtime a step: graph launches {replays}, launches/copies/fills outside a graph "
         f"{host_launches} ({card})")
@@ -1485,12 +1530,14 @@ def volume_intersect_parity(scene, dev, card):
 
 def fog_pool_render(scene, camera, dev, card):
     """cornell_dragon with one fog sphere (the port's graph) through the
-    pool at the main path's size: K1 launches every step and no plain
-    walk runs, lanes stop in the volume (counted on the eager step, whose
-    Python runs every step), the image is finite; then the same render
-    through the graphed step (the volumes' spans captured): K1 launches =
-    steps, the image within float order of the eager one."""
-    from rust_raytracer_torch.ops import bvh8
+    pool at the main path's size: K1 and the path vertex kernels launch
+    every step and no plain walk or plain vertex runs, lanes stop in the
+    volume (counted on the eager step, whose Python runs every step, from
+    the volumes' torch ops that the shading kernel takes its merged hit
+    from), the image is finite; then the same render through the graphed
+    step (the volumes' spans captured): K1 and vertex launches = steps, the
+    image within float order of the eager one."""
+    from rust_raytracer_torch.ops import bvh8, vertex
     from rust_raytracer_torch.ops import intersect as isect
     from rust_raytracer_torch.render.renderer import Renderer
     from rust_raytracer_torch.scene import graph as g
@@ -1503,40 +1550,46 @@ def fog_pool_render(scene, camera, dev, card):
     fog_scene = g.SceneDef(world=g.Group(list(scene.world.items) + [fog]),
                            lights=scene.lights, config=dict(scene.config))
     renderer = Renderer(fog_scene, camera, batch_size=LANES, device=dev, graph=False)
-    hits, real = [], isect.intersect
+    hits, real = [], isect.merge_volumes
 
     def counting(*a, **k):
         out = real(*a, **k)
-        hits.append((out[0].kind == sp.PRIM_VOLUME).sum())
+        hits.append((out[1] == sp.PRIM_VOLUME).sum())
         return out
 
     metrics = RenderMetrics()
     torch.cuda.synchronize()
     bvh8.launches = bvh8.plain_calls = 0
-    isect.intersect = counting
+    reset_vertex()
+    isect.merge_volumes = counting
     try:
         t0 = time.perf_counter()
         film = renderer.render(mode="pool", metrics=metrics)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
-        isect.intersect = real
+        isect.merge_volumes = real
     vol_hits = int(torch.stack(hits).sum())
     hdr = film.hdr()
     if not (bvh8.launches == metrics.steps == len(hits) > 0 and bvh8.plain_calls == 0
+            and vertex.launches == dict.fromkeys(VERTEX_POOL, metrics.steps)
+            and not any(vertex.plain_calls.values())
             and vol_hits > 0 and np.isfinite(hdr).all() and hdr.mean() > 0):
         raise AssertionError(f"fog pool render: K1 launches {bvh8.launches}, steps "
-                             f"{metrics.steps}, volume hits {vol_hits}")
+                             f"{metrics.steps}, volume hits {vol_hits}, vertex launches "
+                             f"{vertex.launches}, plain {vertex.plain_calls}")
     film.save(os.path.join(HERE, "build", "chip_smoke_cornell_dragon_fog.png"))
     total = camera.image_width * camera.image_height * SPP
     log(f"fog pool render: cornell_dragon + a fog sphere, {camera.image_width}x"
         f"{camera.image_height}@{SPP}spp depth {DEPTH}, {LANES} lanes: {total / secs:.1f} "
         f"pixel-samples/s ({secs:.3f} s), {metrics.steps} steps, K1 launches {bvh8.launches}, "
-        f"plain calls 0, {vol_hits} lane-bounces stopped in the volume ({card})")
+        f"plain calls 0, {vol_hits} lane-bounces stopped in the volume; {vertex_route()} "
+        f"({card})")
     renderer.graph = True
     g_metrics = RenderMetrics()
     torch.cuda.synchronize()
     bvh8.launches = 0
+    reset_vertex()
     t0 = time.perf_counter()
     g_hdr = renderer.render(mode="pool", metrics=g_metrics).hdr()
     torch.cuda.synchronize()
@@ -1546,8 +1599,9 @@ def fog_pool_render(scene, camera, dev, card):
         f"its capture), {g_metrics.steps} steps, K1 launches {bvh8.launches}; image vs the "
         f"eager render: pixel agreement {agree:.6f}, mean |d|/mean {rel:.3e} ({card})")
     if not (bvh8.launches == g_metrics.steps == metrics.steps and agree >= 0.999999
-            and rel <= 1e-5):
-        raise AssertionError("the graphed fog render differs from the eager one")
+            and rel <= 1e-5 and vertex.launches == dict.fromkeys(VERTEX_POOL, metrics.steps)):
+        raise AssertionError(f"the graphed fog render differs from the eager one (vertex "
+                             f"launches {vertex.launches})")
 
 
 def png_size(path):
@@ -1577,6 +1631,7 @@ def cli_render(argv, spp, dev, card):
     bvh8.launches = bvh8.plain_calls = threaded.launches = threaded.plain_calls = 0
     for name in wf.KERNELS:
         wf.launches[name], wf.plain_calls[name] = 0, 0
+    reset_vertex()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(list(argv) + ["--metrics=1", f"-o={out}"], device=dev)
@@ -1588,15 +1643,19 @@ def cli_render(argv, spp, dev, card):
     lines = [json.loads(x)["render_metrics"] for x in buf.getvalue().splitlines()
              if x.startswith('{"render_metrics"')]
     w, h = png_size(out)
+    from rust_raytracer_torch.ops import vertex
     if not (rc == 0 and len(lines) == 1 and plain == 0
-            and lines[0]["samples_issued"] == lines[0]["pixel_samples"] == w * h * spp):
-        raise AssertionError(f"cli {argv}: rc {rc}, metrics {lines}, png {w}x{h}, plain {plain}")
+            and lines[0]["samples_issued"] == lines[0]["pixel_samples"] == w * h * spp
+            and vertex.launches == dict.fromkeys(VERTEX_POOL, lines[0]["steps"])
+            and not any(vertex.plain_calls.values())):
+        raise AssertionError(f"cli {argv}: rc {rc}, metrics {lines}, png {w}x{h}, plain {plain}, "
+                             f"{vertex_route()}")
     m = lines[0]
     log(f"cli {' '.join(argv)} --metrics=1 on the card: rc 0, {w}x{h} PNG, "
         f"{m['samples_issued']} samples issued, {m['steps']} steps, "
         f"{m['pixel_samples_per_s']:.1f} pixel-samples/s in the metrics line, "
         f"{secs:.2f} s for main() with the scene build, launches "
-        f"{ {k: v for k, v in launches.items() if v} } ({card})")
+        f"{ {k: v for k, v in launches.items() if v} }; {vertex_route()} ({card})")
     log("cli metrics line: " + json.dumps({"render_metrics": m}))
     return m, launches
 
@@ -1715,9 +1774,10 @@ def f64_phase(dev, card):
     walk on the card against the same on the CPU (radiance and the probed
     gradients within 1e-9 relative), the card's central differences against
     its gradients (rtol 1e-3), Renderer(dtype=float64, kernel="auto") on the
-    card refused with TypeError, and no K1 or K3 launch in the phase."""
+    card refused with TypeError, and no K1, K3 or path vertex kernel launch
+    in the phase (an f64 pack takes the vertex's plain route)."""
     from rust_raytracer_torch.core import rng as vrng
-    from rust_raytracer_torch.ops import bvh8, threaded
+    from rust_raytracer_torch.ops import bvh8, threaded, vertex
     from rust_raytracer_torch.render import integrator
     from rust_raytracer_torch.render.camera import Camera
     from rust_raytracer_torch.render.renderer import Renderer
@@ -1728,6 +1788,7 @@ def f64_phase(dev, card):
     cam = Camera(image_width=16, aspect_ratio=1.0, samples_per_pixel=1, max_depth=3,
                  position=(0, 0.3, 1.6), look_at=(0, 0, 0), focal_length=35.0)
     k1, k3 = bvh8.launches, threaded.launches
+    reset_vertex()
     out = []
     for where in (dev, torch.device("cpu")):
         pack, static = compiler.compile_scene(probe_scene(), where, f64)
@@ -1790,11 +1851,13 @@ def f64_phase(dev, card):
         + ", ".join(f"{f} {v:.3e}" for f, v in grad_gaps.items())
         + f" (bound 1e-9); {len(fd_g)} central differences (eps 1e-6) vs autograd on the card: "
         f"worst rel {fd_worst:.3e} (rtol 1e-3, atol 1e-5); f64 trace {ms_g:.1f} ms on the card, "
-        f"{ms_c:.1f} ms on the cpu; auto on the card refused: TypeError ({card})")
+        f"{ms_c:.1f} ms on the cpu; auto on the card refused: TypeError; {vertex_route()} "
+        f"({card})")
     if not (rad_gap <= 1e-9 and max(grad_gaps.values()) <= 1e-9):
         raise AssertionError("the card's f64 trace disagrees with the CPU's")
-    if (bvh8.launches, threaded.launches) != (k1, k3) or "jnp" not in refused:
-        raise AssertionError("the f64 phase launched a CUDA traversal kernel")
+    if (bvh8.launches, threaded.launches) != (k1, k3) or "jnp" not in refused or any(
+            vertex.launches.values()):
+        raise AssertionError("the f64 phase launched a CUDA traversal or vertex kernel")
     return {"rad_gap": rad_gap, "grad_gap": max(grad_gaps.values()), "fd_worst": fd_worst,
             "trace_ms": ms_g}
 
@@ -2192,7 +2255,8 @@ def lane_state_parity(r, kernel, camera, dev, card, names, steps=20, mesh=None):
         f"one start: lane fields not bit-equal {differ or 'none'} (of {len(lane)} a shard, "
         f"{len(pairs)} shard(s)), accum max |d| {d_acc:.3e} of {scale:.3e} (float order), "
         f"graphed launches {launched}, captures {len(caps)}, {capture_s:.2f} s ({card})")
-    if differ or d_acc > 1e-5 * scale or launched != {nm: steps * len(pairs) for nm in names}:
+    if differ or d_acc > 1e-5 * scale or launched != {
+            nm: steps * len(pairs) for nm in names + VERTEX_POOL}:
         raise AssertionError(f"graphed {tag} steps differ from the eager ones")
     return d_acc
 
@@ -2231,7 +2295,7 @@ def graph_render_pair(r, kernel, camera, dev, card, names):
         launched = {k: v - before[k] for k, v in graphs.launch_counts().items()
                     if v != before[k]}
         runs.append((mode, secs, m.steps, peak, launched, accum))
-        if launched != {nm: m.steps for nm in names}:
+        if launched != {nm: m.steps for nm in names + VERTEX_POOL}:
             raise AssertionError(f"{mode} {kernel} render: launches {launched}, {m.steps} steps")
     cap = the_capture(steps["graphed"])
     nodes = graph_nodes(cap.graph)
@@ -2259,6 +2323,9 @@ def graph_render_pair(r, kernel, camera, dev, card, names):
         f"{runs[2][4]} ({card})")
     if len(n_steps) != 1 or not (agree >= 0.999999 and rel <= 1e-5):
         raise AssertionError(f"graphed {kernel} render differs from the eager one")
+    if kernel == "auto" and nodes["kernel"] > MAX_STEP_KERNEL_NODES:
+        raise AssertionError(f"the graphed BVH8 step holds {nodes['kernel']} kernel nodes, "
+                             f"more than {MAX_STEP_KERNEL_NODES}")
     return out
 
 
@@ -2271,7 +2338,7 @@ def graph_phase(renderer, wf_renderer, camera, dev, card):
                              ("wavefront", wf_renderer, ("wf_cull_compact", "wf_mt"))):
         lane_state_parity(r, kernel, camera, dev, card, names)
         out[kernel] = graph_render_pair(r, kernel, camera, dev, card, names)
-        out[kernel]["split"] = step_split(r, camera, card, names, graph=True)
+        out[kernel]["split"] = step_split(r, camera, card, names + VERTEX_POOL, graph=True)
     return out
 
 
@@ -2563,7 +2630,7 @@ def batch_renders(r, tag, card):
         torch.cuda.synchronize()
         secs[mode].append(time.perf_counter() - t0)
         launched = {n: v - before[n] for n, v in graphs.launch_counts().items() if v != before[n]}
-        want = {"threaded_traverse": m.bounces}
+        want = {"threaded_traverse": m.bounces, **{nm: m.bounces for nm in VERTEX_BOUNCE}}
         if mode:
             want["loop_cond"] = m.bounces
         if launched != want:
@@ -2742,7 +2809,7 @@ def main():
     from rust_raytracer_torch import models, native
     from rust_raytracer_torch.core import rng as vrng
     from rust_raytracer_torch.models import builtin
-    from rust_raytracer_torch.ops import bvh8, loop_cond, threaded
+    from rust_raytracer_torch.ops import bvh8, loop_cond, threaded, vertex
     from rust_raytracer_torch.ops import wavefront as wf
     from rust_raytracer_torch.render import integrator
     from rust_raytracer_torch.render.camera import camera_from_config
@@ -2771,6 +2838,11 @@ def main():
             f"(stack frame and spills), {a['shared_bytes']} static shared bytes a thread block")
         if name.startswith("wf_cull") and a["local_bytes"]:
             raise AssertionError(f"{name}_kernel spills: {a['local_bytes']} local bytes")
+    for name, a in vertex.attributes().items():
+        held = "; the texture program's values" if name == "vertex_shade" else ""
+        log(f"{name}_kernel: {a['registers']} registers, {a['local_bytes']} local bytes "
+            f"(stack frame and spills{held}), {a['shared_bytes']} static shared bytes a "
+            f"thread block")
     sass = {}
     for name, ops in (("wf_cull", SLAB_OPS), ("wf_cull_compact", SLAB_OPS), ("wf_mt", MT_OPS)):
         sass[name] = per = loop_per_test(sass_loops(lib, name + "_kernel"), name)
@@ -2888,15 +2960,19 @@ def main():
     torch.cuda.synchronize()
     bvh8.launches = 0
     bvh8.plain_calls = 0
+    reset_vertex()
     t0 = time.perf_counter()
     film = renderer.render(mode="pool", metrics=metrics)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     launches, plain_calls = bvh8.launches, bvh8.plain_calls
-    if not (launches > 0 and launches == metrics.steps and plain_calls == 0):
+    v_launches = dict(vertex.launches)
+    if not (launches > 0 and launches == metrics.steps and plain_calls == 0
+            and v_launches == dict.fromkeys(VERTEX_POOL, metrics.steps)
+            and not any(vertex.plain_calls.values())):
         raise AssertionError(
             f"main path: {launches} kernel launches, {metrics.steps} pool steps, "
-            f"{plain_calls} plain calls")
+            f"{plain_calls} plain calls; {vertex_route()}")
     hdr = check_image(film, camera)
     h = camera.image_height
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
@@ -2905,16 +2981,16 @@ def main():
     log(f"main path: cornell_dragon {W}x{h}@{SPP}spp depth {DEPTH}, {LANES} lanes, graphed "
         f"step (its capture included): {total / render_s:.1f} pixel-samples/s ({render_s:.3f} s), "
         f"{metrics.steps} steps, mean occupancy {occupancy(metrics):.4f}, "
-        f"kernel launches {launches} ({card})")
+        f"kernel launches {launches}; {vertex_route()} ({card})")
 
     # ---- 6. the kernel against its plain version on every pool step's own
     # inputs ----
     max_err = max(max_err, pool_step_parity(renderer))
 
     # ---- 7. where a steady pool step's device time goes ----
-    step_split(renderer, camera, card, ("bvh8_traverse",))
+    step_split(renderer, camera, card, ("bvh8_traverse",) + VERTEX_POOL)
     split = device_split("BVH8 pool render", lambda: renderer.render(mode="pool"), card,
-                         ("bvh8_traverse",))
+                         ("bvh8_traverse",) + VERTEX_POOL)
 
     # ---- 8. wavefront: each kernel against its plain version, and the
     # pipeline against the BVH8 kernel, on the traversal inputs of a
@@ -2973,6 +3049,7 @@ def main():
     bvh8.launches, bvh8.plain_calls = 0, 0
     for name in wf.KERNELS:
         wf.launches[name], wf.plain_calls[name] = 0, 0
+    reset_vertex()
     t0 = time.perf_counter()
     wf_film = wf_renderer.render(mode="pool", metrics=wf_metrics)
     torch.cuda.synchronize()
@@ -2980,9 +3057,12 @@ def main():
     wf_launches = dict(wf.launches)
     want = {"wf_cull_compact": wf_metrics.steps, "wf_cull": 0, "wf_compact": 0,
             "wf_mt": wf_metrics.steps}
+    wf_v_launches = dict(vertex.launches)
     if not (wf_metrics.steps > 0 and wf_launches == want
             and bvh8.launches == 0 and bvh8.plain_calls == 0
-            and not any(wf.plain_calls.values())):
+            and not any(wf.plain_calls.values())
+            and wf_v_launches == dict.fromkeys(VERTEX_POOL, wf_metrics.steps)
+            and not any(vertex.plain_calls.values())):
         raise AssertionError(
             f"wavefront main path: launches {wf_launches}, {wf_metrics.steps} pool steps, "
             f"plain calls {wf.plain_calls}, BVH8 launches {bvh8.launches}, "
@@ -2995,7 +3075,7 @@ def main():
         f"path above {total / render_s:.1f}), {wf_metrics.steps} steps, mean occupancy "
         f"{occupancy(wf_metrics):.4f}, launches {wf_launches}, overflow "
         f"{wf_metrics.wf_overflow_packets}/{wf_metrics.wf_total_packets} packets "
-        f"({ov_frac:.4%}) ({card})")
+        f"({ov_frac:.4%}); {vertex_route()} ({card})")
     agree, rel = image_agreement(wf_hdr, hdr)
     log(f"wavefront image vs BVH8 image: pixel agreement {agree:.6f}, "
         f"mean |d|/mean {rel:.3e}")
@@ -3003,7 +3083,7 @@ def main():
         raise AssertionError("the wavefront render disagrees with the BVH8 render")
 
     # ---- 12. where a steady wavefront pool step's device time goes ----
-    step_split(wf_renderer, camera, card, ("wf_cull_compact", "wf_mt"))
+    step_split(wf_renderer, camera, card, ("wf_cull_compact", "wf_mt") + VERTEX_POOL)
     split.update(device_split("wavefront pool render", lambda: wf_renderer.render(mode="pool"),
                               card, ("wf_cull_compact", "wf_mt"),
                               absent=("wf_cull", "wf_compact")))
@@ -3025,11 +3105,16 @@ def main():
     loop_cond.launches = loop_cond.plain_calls = 0
     for name in wf.KERNELS:
         wf.launches[name], wf.plain_calls[name] = 0, 0
+    reset_vertex()
     t0 = time.perf_counter()
     b_film = b_renderer.render(mode="batch", metrics=b_metrics)
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
     k3_launches, lc_launches = threaded.launches, loop_cond.launches
+    b_v_launches = dict(vertex.launches)
+    if b_v_launches != {**dict.fromkeys(VERTEX_BOUNCE, b_metrics.bounces), "pool_refill": 0} \
+            or any(vertex.plain_calls.values()):
+        raise AssertionError(f"batch path: {b_metrics.bounces} bounces; {vertex_route()}")
     if not (k3_launches == b_metrics.bounces == lc_launches > 0 and threaded.plain_calls == 0
             and loop_cond.plain_calls == 0
             and bvh8.launches == bvh8.plain_calls == 0 and not any(wf.launches.values())
@@ -3044,7 +3129,8 @@ def main():
         f"{total / batch_s:.1f} pixel-samples/s ({batch_s:.3f} s; BVH8 pool render above "
         f"{total / render_s:.1f}), {b_metrics.batches} batches, {b_metrics.bounces} bounces, "
         f"K3 launches {k3_launches}, loop_cond launches {lc_launches} (one graph launch a "
-        f"batch, its capture included), plain calls 0, BVH8 and wavefront launches 0 ({card})")
+        f"batch, its capture included), plain calls 0, BVH8 and wavefront launches 0; "
+        f"{vertex_route()} ({card})")
     agree, rel = image_agreement(b_hdr, hdr)
     log(f"batch image vs BVH8 pool image: pixel agreement {agree:.6f}, mean |d|/mean {rel:.3e}")
     if not (agree >= 0.999 and rel <= 1e-3):
@@ -3078,6 +3164,7 @@ def main():
         base, base_res = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         torch.cuda.reset_peak_memory_stats()
         threaded.launches = threaded.plain_calls = 0
+        reset_vertex()
         t0 = time.perf_counter()
         grads[remat] = step(tpack, 0)[1]
         torch.cuda.synchronize()
@@ -3094,7 +3181,8 @@ def main():
         cap = the_capture(step.grad)
         nodes = graph_nodes(cap.graph)
         if not (threaded.launches == 4 * 20 and threaded.plain_calls == 0
-                and cap.launched == {"threaded_traverse": 20}):
+                and cap.launched == {"threaded_traverse": 20}
+                and not any(vertex.launches.values())):
             raise AssertionError(f"fwd+bwd {remat}: K3 launches {threaded.launches} in 4 "
                                  f"replays, plain calls {threaded.plain_calls}, a capture's "
                                  f"{cap.launched}")
@@ -3106,7 +3194,8 @@ def main():
             f"the start {peak / 2**30:.3f} GiB ({peak} bytes, capture included), held after "
             f"the calls {held / 2**20:.1f} MiB allocated (the static gradients and the "
             f"first call's), {held_res / 2**30:.3f} GiB reserved (the graph's pool), K3 "
-            f"launches {threaded.launches} in 4 replays, plain calls 0 ({card})")
+            f"launches {threaded.launches} in 4 replays, plain calls 0; the vertex in torch ops "
+            f"(autograd), {vertex_route()} ({card})")
         split16 = device_split(f"fwd+bwd step, remat={remat}, graphed", lambda: step(tpack, 4),
                                card, ("threaded_traverse",))
         k3_split[f"fwd+bwd step ({remat})"] = split16["threaded_traverse"]
@@ -3189,6 +3278,18 @@ def main():
     # ---- 28. a batch of the batch render as one graph launch, its bounce
     # loop stopped on the card ----
     program = batch_program_phase(b_renderer, camera, dev, card, b_split["busy"][0])
+
+    # ---- 29. the path vertex kernels against their plain versions on the
+    # recorded pool-step inputs (first, mid and drain steps, BVH8 and
+    # wavefront), the fog scene, a sky and sun, every texture node; and
+    # timed against them ----
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import vertex_parity
+
+    t0 = time.perf_counter()
+    v_rep, v_time = vertex_parity.run(card, dragon=scene, bvh8_renderer=renderer,
+                                      wf_renderer=wf_renderer)
+    log(f"vertex parity phase: {time.perf_counter() - t0:.1f} s")
 
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")
@@ -3283,7 +3384,24 @@ def main():
         "bound_by": program["loop_cond"]["bound"][1],
         "library_ms": None,
         "sharded_launches": sharded.get("loop_cond", 0),
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"rust_raytracer_torch/csrc/{VERTEX_SOURCES[name]}",
+        "replaces": None,
+        "launches": v_launches[name],
+        "max_abs_err": v_rep.max_abs_err(name),
+        "ms": v_time[name][0],
+        "plain_ms": v_time[name][1],
+        "bound_ms": v_time[name][2],
+        "bound_by": v_time[name][3],
+        "library_ms": None,
+        "ms_eager": v_time[name][4],
+        "not_bit_equal_share": v_rep.worst_share[name],
+        "wavefront_launches": wf_v_launches[name],
+        "batch_launches": b_v_launches[name],
+        "render_device_ms": split[name][0],
+    } for name in VERTEX_POOL]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

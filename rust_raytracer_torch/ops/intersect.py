@@ -368,32 +368,40 @@ def _intersect(pack, org, dirn, t_min, rng_ctx, alive, kernel, return_stats):
     inf = _full(n, float("inf"), dtype, dev)
     t_min_lanes = torch.full((n,), t_min, dtype=dtype, device=dev)
 
-    t_sph, i_sph = intersect_spheres(pack, org, dirn, t_min_lanes, inf)
-    t_pln, i_pln = intersect_planes(pack, org, dirn, t_min_lanes, inf)
-    tri_tmax = torch.minimum(t_sph, t_pln)
-    if alive is not None:
-        tri_tmax = torch.where(alive, tri_tmax, torch.zeros_like(tri_tmax))
+    t_sph, i_sph, t_pln, i_pln, tri_tmax = analytic_hits(pack, org, dirn, t_min_lanes, alive,
+                                                         inf)
     t_tri, i_tri, stats = intersect_triangles(pack, org.contiguous(), dirn.contiguous(),
                                               t_min, tri_tmax, kernel=kernel,
                                               return_stats=True)
-    t_tri = torch.where(i_tri >= 0, t_tri, inf)
+    hit = close_hits(pack, org, dirn, t_min_lanes, rng_ctx, t_sph, i_sph, t_pln, i_pln, t_tri,
+                     i_tri, inf)
+    if return_stats:
+        return hit, stats
+    return hit
 
-    t_best = torch.minimum(torch.minimum(t_sph, t_pln), t_tri)
-    is_s = t_sph <= t_best
-    is_p = t_pln <= t_best
-    kind = torch.where(is_s, sp.PRIM_SPHERE,
-                       torch.where(is_p, sp.PRIM_PLANE, sp.PRIM_TRIANGLE)).to(torch.int32)
-    prim = torch.where(is_s, i_sph, torch.where(is_p, i_pln, i_tri))
-    finite = torch.isfinite(t_best)
-    kind = torch.where(finite, kind, sp.PRIM_NONE).to(torch.int32)
-    prim = torch.where(finite, prim, -1).to(torch.int32)
 
-    if pack.vol_kinds:
-        t_vol, i_vol = intersect_volumes(pack, org, dirn, t_min_lanes, t_best, rng_ctx)
-        vol_hit = i_vol >= 0
-        t_best = torch.where(vol_hit, t_vol, t_best)
-        kind = torch.where(vol_hit, sp.PRIM_VOLUME, kind).to(torch.int32)
-        prim = torch.where(vol_hit, i_vol, prim).to(torch.int32)
+def analytic_hits(pack, org, dirn, t_min, alive=None, inf=None):
+    """`intersect` before the triangle walk: the closest sphere and plane
+    hits (t, id) and the walk's t_max (the nearer of the two, 0 on a dead
+    lane when `alive` is given), `t_min` the (n,) lanes of T_MIN: the plain
+    version of the vertex hit kernel (ops/vertex.py)."""
+    if inf is None:
+        inf = _full(org.shape[0], float("inf"), org.dtype, org.device)
+    t_sph, i_sph = intersect_spheres(pack, org, dirn, t_min, inf)
+    t_pln, i_pln = intersect_planes(pack, org, dirn, t_min, inf)
+    tri_tmax = torch.minimum(t_sph, t_pln)
+    if alive is not None:
+        tri_tmax = torch.where(alive, tri_tmax, torch.zeros_like(tri_tmax))
+    return t_sph, i_sph, t_pln, i_pln, tri_tmax
+
+
+def close_hits(pack, org, dirn, t_min, rng_ctx, t_sph, i_sph, t_pln, i_pln, t_tri, i_tri,
+               inf=None) -> Hit:
+    """`intersect` after the triangle walk: `merge_volumes`, then the sun
+    within its cone, then the last sky catches everything still unbounded.
+    The plain version of that part of the shading kernel (ops/vertex.py)."""
+    t_best, kind, prim = merge_volumes(pack, org, dirn, t_min, rng_ctx, t_sph, i_sph,
+                                       t_pln, i_pln, t_tri, i_tri, inf)
 
     n_sun = pack.sun_dir.shape[0]
     if n_sun:
@@ -414,11 +422,41 @@ def _intersect(pack, org, dirn, t_min, rng_ctx, alive, kernel, return_stats):
         kind = torch.where(miss, sp.PRIM_SKY, kind).to(torch.int32)
         prim = torch.where(miss, n_sky - 1, prim).to(torch.int32)
         t_best = torch.where(miss, float("inf"), t_best)
+    return Hit(t=t_best, kind=kind, prim=prim)
 
-    hit = Hit(t=t_best, kind=kind, prim=prim)
-    if return_stats:
-        return hit, stats
-    return hit
+
+def merge_volumes(pack, org, dirn, t_min, rng_ctx, t_sph, i_sph, t_pln, i_pln, t_tri, i_tri,
+                  inf=None):
+    """The closest of the sphere, plane and triangle hits, then the
+    volumes' free-flight samples (the part of `intersect` between the walk
+    and the sun) -> (t, kind, prim).  `t_min` is a float or the (n,) lanes
+    of it.  On the card the shading kernel (ops/vertex.py) runs this merge
+    itself in a scene without volumes; with volumes it takes this
+    function's result."""
+    n = org.shape[0]
+    if inf is None:
+        inf = _full(n, float("inf"), org.dtype, org.device)
+    if not isinstance(t_min, torch.Tensor):
+        t_min = torch.full((n,), t_min, dtype=org.dtype, device=org.device)
+    t_tri = torch.where(i_tri >= 0, t_tri, inf)
+
+    t_best = torch.minimum(torch.minimum(t_sph, t_pln), t_tri)
+    is_s = t_sph <= t_best
+    is_p = t_pln <= t_best
+    kind = torch.where(is_s, sp.PRIM_SPHERE,
+                       torch.where(is_p, sp.PRIM_PLANE, sp.PRIM_TRIANGLE)).to(torch.int32)
+    prim = torch.where(is_s, i_sph, torch.where(is_p, i_pln, i_tri))
+    finite = torch.isfinite(t_best)
+    kind = torch.where(finite, kind, sp.PRIM_NONE).to(torch.int32)
+    prim = torch.where(finite, prim, -1).to(torch.int32)
+
+    if pack.vol_kinds:
+        t_vol, i_vol = intersect_volumes(pack, org, dirn, t_min, t_best, rng_ctx)
+        vol_hit = i_vol >= 0
+        t_best = torch.where(vol_hit, t_vol, t_best)
+        kind = torch.where(vol_hit, sp.PRIM_VOLUME, kind).to(torch.int32)
+        prim = torch.where(vol_hit, i_vol, prim).to(torch.int32)
+    return t_best, kind, prim
 
 
 def hit_attributes(pack, org, dirn, hit: Hit) -> HitAttributes:

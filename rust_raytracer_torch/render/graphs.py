@@ -5,16 +5,18 @@ rust_raytracer_tpu/render/pool.py:279 and :292), the gradient step
 train_step_fn) and the batch program with its while loop (`LoopGraph`;
 `jax.jit(batch_fn)`, render/renderer.py:77).
 
-Eagerly, a pool step or a batch bounce is ~1,700 kernel launches from
-Python and a fwd+bwd step ~57,600, and the host, not the card, sets their
-time.  `GraphedStep` captures one call of a step function into a
+Eagerly, a pool step or a batch bounce was ~1,700 kernel launches from
+Python before its path vertex became the kernels of ops/vertex.py (a few
+dozen since), and a fwd+bwd step is ~57,600: the host, not the card, sets
+their time.  `GraphedStep` captures one call of a step function into a
 `torch.cuda.CUDAGraph` and replays it: one launch a step.  `GraphedGrad`
 does the same for a loss's forward and its whole backward pass
 (`torch.autograd.grad`), one launch a gradient step.  `LoopGraph` puts a
 prologue, a loop body under a conditional WHILE node whose condition a
 kernel sets on the card, and an epilogue into one graph: a batch of the
-batch render, its bounce loop included, is one launch.  The five traversal
-kernels run inside the graphs as they run eagerly (ops/_cuda.py launches
+batch render, its bounce loop included, is one launch.  The traversal
+kernels and the path vertex kernels (ops/vertex.py, whose scene tables are
+built before a capture) run inside the graphs as they run eagerly (ops/_cuda.py launches
 on the current stream, which is the capturing stream during a capture,
 and the autograd engine runs a backward op, a checkpoint's recompute
 included, on its forward op's stream).
@@ -49,7 +51,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from ..ops import bvh8, loop_cond, threaded
+from ..ops import bvh8, loop_cond, threaded, vertex
 from ..ops import intersect as isect
 from ..ops import wavefront as wf
 from ..utils import metrics as metricsmod
@@ -67,9 +69,9 @@ def applies(device, kernel: str, pack) -> bool:
 
 def launch_counts() -> Dict[str, int]:
     """The kernel wrappers' launch counters (ops/bvh8.py, ops/threaded.py,
-    ops/wavefront.py, ops/loop_cond.py), by kernel name."""
+    ops/wavefront.py, ops/loop_cond.py, ops/vertex.py), by kernel name."""
     return {"bvh8_traverse": bvh8.launches, "threaded_traverse": threaded.launches,
-            **wf.launches, "loop_cond": loop_cond.launches}
+            **wf.launches, "loop_cond": loop_cond.launches, **vertex.launches}
 
 
 def _set_launches(counts: Dict[str, int]) -> None:
@@ -77,6 +79,7 @@ def _set_launches(counts: Dict[str, int]) -> None:
     threaded.launches = counts["threaded_traverse"]
     wf.launches.update({k: counts[k] for k in wf.KERNELS})
     loop_cond.launches = counts["loop_cond"]
+    vertex.launches.update({k: counts[k] for k in vertex.KERNELS})
 
 
 def cuda_capture(body: Callable[[], None], device) -> torch.cuda.CUDAGraph:

@@ -21,6 +21,12 @@ program (render/renderer.py:BatchProgram), which runs the same bounce
 (`bounce_step`) as one CUDA graph on the card, its loop stopping there:
 `start_state`, `batch_lanes` and `scatter_back` are the parts it shares
 with `trace`.
+
+On the card the non-differentiable vertex (`shade_vertex`, `advance`,
+`compaction_key`) runs as the path vertex kernels of ops/vertex.py; the
+torch ops here (`shade_hits`, `_advance`, `_compaction_key`) are their
+plain versions, which the CPU, the f64 trace and the differentiable
+trace run.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from ..core import rng as vrng
 from ..ops import intersect as isect
 from ..ops import shade as shd
 from ..ops import texture as tex
+from ..ops import vertex
 from ..utils import metrics as metricsmod
 
 REMAT_MODES = ("none", "hits", "full")
@@ -116,8 +123,15 @@ def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
     Returns (emission, weight, new_dir, ended, pos, stats) as the
     reference; stats["wf_overflow"] is the number of packets that
     overflowed a wavefront cap this vertex (a 0-d int64 tensor on the
-    device; 0 for the exact walks).
+    device; 0 for the exact walks).  On the card (ops/vertex.py:use_kernels)
+    this is KV1, the walk and KV2 (ops/vertex.py:fused_vertex); its plain
+    version, which the CPU runs, is `intersect` and `shade_hits`.
     """
+    if vertex.use_kernels(pack, org, dirn):
+        return vertex.fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel,
+                                   T_MIN)
+    vertex.plain_calls["vertex_hit"] += 1
+    vertex.plain_calls["vertex_shade"] += 1
     hit, stats = isect.intersect(pack, org, dirn, T_MIN, ctx, alive=alive, kernel=kernel,
                                  return_stats=True)
     return (*shade_hits(pack, static, org, dirn, hit, ctx, light_bias), stats)
@@ -140,18 +154,28 @@ class BounceState(NamedTuple):
     seed: object
 
 
-def _sort_lanes(s: BounceState) -> BounceState:
-    """The lanes in the stable order of `_compaction_key` (dead last)."""
-    perm = torch.sort(_compaction_key(s.org, s.dirn, s.alive), stable=True).indices
+def compaction_key(org, dirn, alive):
+    """`_compaction_key` of the lanes: KV3's key kernel on the card
+    (ops/vertex.py:compaction_key), the plain version elsewhere."""
+    if vertex.use_kernels(None, org, dirn):
+        return vertex.compaction_key(org.contiguous(), dirn.contiguous(), alive.contiguous())
+    vertex.plain_calls["compaction_key"] += 1
+    return _compaction_key(org, dirn, alive)
+
+
+def _sort_lanes(s: BounceState, routed: bool = False) -> BounceState:
+    """The lanes in the stable order of `_compaction_key` (dead last); the
+    key through `compaction_key` if `routed` (the non-differentiable
+    bounce), else the plain version."""
+    key = (compaction_key if routed else _compaction_key)(s.org, s.dirn, s.alive)
+    perm = torch.sort(key, stable=True).indices
     return BounceState(*(x[perm] for x in s[:-2]), depth=s.depth, seed=s.seed)
 
 
-def _shade_bounce(pack, static, light_bias, org, dirn, throughput, radiance, alive, hit, ctx):
-    """Shade a bounce's hits and advance the lane state (reference
-    integrator.py:197-208): add the emission, scale the throughput, end
-    paths, keep dead lanes numerically inert."""
-    emission, weight, next_dir, ended, pos = shade_hits(pack, static, org, dirn, hit,
-                                                        ctx, light_bias)
+def _advance(org, dirn, throughput, radiance, alive, emission, weight, next_dir, ended, pos):
+    """Advance the lane state after shading (reference integrator.py:
+    197-208): add the emission, scale the throughput, end paths, keep dead
+    lanes numerically inert."""
     radiance = radiance + throughput * emission * alive[:, None]
     throughput = throughput * torch.where(alive[:, None], weight, 0.0)
     alive = alive & ~ended
@@ -160,19 +184,39 @@ def _shade_bounce(pack, static, light_bias, org, dirn, throughput, radiance, ali
     return new_org, new_dir, throughput, radiance, alive
 
 
+def advance(pack, *lanes):
+    """`_advance(*lanes)`: KV3's batch update on the card
+    (ops/vertex.py:lane_update), the plain version elsewhere."""
+    if vertex.use_kernels(pack, *lanes[:2]):
+        return vertex.lane_update(*(x.contiguous() for x in lanes))[:5]
+    vertex.plain_calls["lane_update"] += 1
+    return _advance(*lanes)
+
+
+def _shade_bounce(pack, static, light_bias, org, dirn, throughput, radiance, alive, hit, ctx):
+    """Shade a bounce's hits and advance the lane state (the
+    differentiable trace's bounce)."""
+    emission, weight, next_dir, ended, pos = shade_hits(pack, static, org, dirn, hit,
+                                                        ctx, light_bias)
+    return _advance(org, dirn, throughput, radiance, alive, emission, weight, next_dir,
+                    ended, pos)
+
+
 def bounce_step(static, light_bias: float, compact: bool, kernel: str):
     """`step(pack, s: BounceState) -> BounceState`: one bounce of the
     non-differentiable trace (the compaction sort, the closest hit, the
     shading), a pure function of the pack and the lanes (their seed
     included), so that a graph can replay it (renderer.BatchProgram's loop
-    body)."""
+    body).  On the card its key, vertex and update are the vertex kernels
+    (`compaction_key`, `shade_vertex`, `advance`)."""
 
     def step(pack, s: BounceState) -> BounceState:
         if compact:
-            s = _sort_lanes(s)
+            s = _sort_lanes(s, routed=True)
         ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=s.depth, seed=s.seed)
-        hit = isect.intersect(pack, s.org, s.dirn, T_MIN, ctx, alive=s.alive, kernel=kernel)
-        lanes = _shade_bounce(pack, static, light_bias, *s[:5], hit, ctx)
+        shaded = shade_vertex(pack, static, s.org, s.dirn, ctx, light_bias, s.alive,
+                              kernel=kernel)[:5]
+        lanes = advance(pack, *s[:5], *shaded)
         return BounceState(*lanes, src=s.src, pixel=s.pixel, sample=s.sample,
                            depth=s.depth + 1, seed=s.seed)
 

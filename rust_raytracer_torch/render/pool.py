@@ -10,12 +10,15 @@ the reference (index_add_ on the card sums in no fixed order).
 
 Step order, as the reference: shade the vertex, compaction-sort the lanes
 (dead last) BEFORE retiring and refilling, add retirees into the image,
-refill dead lanes pixel-major from the job counter.  The step is plain
-PyTorch; the triangle traversal inside it is the chosen traversal's CUDA
-kernels on the card (`kernel`: the BVH8 walk or the wavefront pipeline,
-whose cap-overflow count the state sums on the device).  On the card the
-step replays a CUDA graph of its body (render/graphs.py), the reference's
-jitted step with its state donated; on the CPU it runs eagerly.
+refill dead lanes pixel-major from the job counter.  On the card the step
+is the path vertex kernels of ops/vertex.py around the chosen traversal's
+CUDA kernels (`kernel`: the BVH8 walk or the wavefront pipeline, whose
+cap-overflow count the state sums on the device), with the sort and the
+image's index_add between them; its plain version, which the CPU runs,
+is torch ops (integrator.shade_vertex, `update_plain`, `refill_plain`).
+On the card the step replays a CUDA graph of its body (render/graphs.py),
+the reference's jitted step with its state donated; on the CPU it runs
+eagerly.
 
 With a `mesh` (parallel/mesh.py) the lane axis is sharded as the
 reference's shard_map shards it: the lanes split evenly, and shard s owns a
@@ -42,6 +45,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..core import rng as vrng
+from ..ops import vertex
 from ..parallel import mesh as pmesh
 from ..utils import metrics as metricsmod
 from . import graphs, integrator
@@ -177,11 +181,14 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
         return fn
 
     if mesh is None:
+        vertex.prepare(pack, static, camera)
         return local(pack.device, 0, total)
     shards = [(dev, local(dev, *_shard_quota(mesh.first + i, mesh.n_shards, total),
                           donate=True))
               for i, dev in enumerate(mesh.devices)]
     replica = pmesh.replicas(pack)
+    for dev in mesh.devices:
+        vertex.prepare(replica(dev), static, camera)
 
     def step(pack_, s: ShardedState) -> ShardedState:
         if not isinstance(s, ShardedState):
@@ -205,70 +212,112 @@ def _local_step(static, camera, spp: int, seed, kernel: str, job_base: int, quot
         ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=s.bounce, seed=seed)
         emission, weight, new_dir, ended, pos, stats = integrator.shade_vertex(
             pack, static, s.org, s.dirn, ctx, light_bias, s.active, kernel=kernel)
-        overflow = s.overflow + stats["wf_overflow"]
-
-        act = s.active[:, None]
-        radiance = s.radiance + s.throughput * emission * act
-        throughput = s.throughput * torch.where(act, weight, 0.0)
-        bounce = s.bounce + 1
-        still = s.active & ~ended & (bounce < max_depth)
-        org = torch.where(still[:, None], pos, s.org)
-        dirn = torch.where(still[:, None], new_dir, s.dirn)
-        retired = s.active & ~still
-        pixel, sample = s.pixel, s.sample
-
-        # ---- compaction sort before retire/refill: dead lanes (this
-        # step's retirees included) pack into the tail; the refill then
-        # issues its pixel-major camera rays into that tail ----
-        key = integrator._compaction_key(org, dirn, still)
-        perm = torch.sort(key, stable=True).indices
-        org, dirn = org[perm], dirn[perm]
-        throughput, radiance = throughput[perm], radiance[perm]
-        pixel, sample, bounce = pixel[perm], sample[perm], bounce[perm]
-        still, retired = still[perm], retired[perm]
-
-        # ---- retire finished paths: full-width masked add (masked rows
-        # add 0, the same sum as the reference's tail window) ----
-        accum = s.accum.index_add(
-            0, pixel, torch.where(retired[:, None], radiance, 0.0))
-
-        # ---- refill dead lanes with the next un-issued (pixel, sample) of
-        # this shard's slice ----
-        dead = ~still
-        n_dead = dead.sum()
-        rank = torch.cumsum(dead.to(torch.int64), 0) - 1
-        new_local = s.next_flat + rank
-        issue = dead & (new_local < quota)
-        new_flat = new_local + job_base if job_base else new_local
-        pix = new_flat // spp
-        smp = new_flat % spp
-        px = pix % w
-        py = pix // w
-        ctx0 = vrng.Ctx(pixel=pix, sample=smp, bounce=0, seed=seed)
-        g_org, g_dir = camera.generate_rays(px, py, smp, ctx0, s.org.dtype)
-
-        iss = issue[:, None]
-        org = torch.where(iss, g_org, org)
-        dirn = torch.where(iss, g_dir, dirn)
-        throughput = torch.where(iss, 1.0, throughput)
-        radiance = torch.where(iss | retired[:, None], 0.0, radiance)
-        pixel = torch.where(issue, pix, pixel)
-        sample = torch.where(issue, smp, sample)
-        bounce = torch.where(issue, 0, bounce)
-        active = still | issue
-        next_flat = torch.clamp(s.next_flat + n_dead, max=quota)
-
-        out = PoolState(org=org, dirn=dirn, throughput=throughput,
-                        radiance=radiance, pixel=pixel, sample=sample,
-                        bounce=bounce, active=active, accum=accum,
-                        next_flat=next_flat, overflow=overflow)
+        if vertex.use_kernels(pack, s.org, s.dirn):
+            out = kernel_tail(s, emission, weight, new_dir, ended, pos, stats["wf_overflow"])
+        else:
+            out = plain_tail(s, emission, weight, new_dir, ended, pos, stats["wf_overflow"])
         if metricsmod.nan_checks():
             metricsmod.check_nans("pool step", **{
                 f: getattr(out, f) for f in ("org", "dirn", "throughput", "radiance",
                                              "accum")})
         return out
 
+    def kernel_tail(s, emission, weight, new_dir, ended, pos, wf_overflow):
+        """The step after shading on the card: KV3 (update, key), the sort,
+        KV4 (gather, retire, refill), the image's index_add."""
+        org, dirn, throughput, radiance, bounce, still, retired, scratch, box = (
+            vertex.lane_update(s.org, s.dirn, s.throughput, s.radiance, s.active, emission,
+                               weight, new_dir, ended, pos, bounce=s.bounce,
+                               max_depth=max_depth))
+        perm = torch.sort(vertex.compaction_key(org, dirn, still, box), stable=True).indices
+        (org, dirn, throughput, radiance, pixel, sample, bounce, active, ret_pixel, contrib,
+         next_flat, overflow) = vertex.pool_refill(
+            perm, (org, dirn, throughput, radiance, s.pixel, s.sample, bounce, still, retired),
+            scratch, s.next_flat, s.overflow, wf_overflow,
+            vertex.camera_table(camera, s.org.device), quota, job_base, spp, w,
+            camera.sqrt_spt, camera.aperture_radius is not None, seed)
+        return PoolState(org=org, dirn=dirn, throughput=throughput, radiance=radiance,
+                         pixel=pixel, sample=sample, bounce=bounce, active=active,
+                         accum=s.accum.index_add(0, ret_pixel, contrib),
+                         next_flat=next_flat, overflow=overflow)
+
+    def plain_tail(s, emission, weight, new_dir, ended, pos, wf_overflow):
+        """The step after shading in torch ops: the plain versions of KV3
+        and KV4 (with the sort between them)."""
+        for name in ("lane_update", "compaction_key", "pool_refill"):
+            vertex.plain_calls[name] += 1
+        lanes = update_plain(s, emission, weight, new_dir, ended, pos, max_depth)
+        perm = torch.sort(integrator._compaction_key(lanes[0], lanes[1], lanes[7]),
+                          stable=True).indices
+        return refill_plain(s, perm, lanes, wf_overflow, camera, quota, job_base, spp, seed)
+
     return step
+
+
+def update_plain(s: PoolState, emission, weight, new_dir, ended, pos, max_depth: int):
+    """The pool's lane update after shading in torch ops, the plain version
+    of KV3's update (ops/vertex.py:lane_update): (org, dirn, throughput,
+    radiance, pixel, sample, bounce, still, retired) of the lanes, in their
+    order."""
+    act = s.active[:, None]
+    radiance = s.radiance + s.throughput * emission * act
+    throughput = s.throughput * torch.where(act, weight, 0.0)
+    bounce = s.bounce + 1
+    still = s.active & ~ended & (bounce < max_depth)
+    org = torch.where(still[:, None], pos, s.org)
+    dirn = torch.where(still[:, None], new_dir, s.dirn)
+    retired = s.active & ~still
+    return org, dirn, throughput, radiance, s.pixel, s.sample, bounce, still, retired
+
+
+def refill_plain(s: PoolState, perm, lanes, wf_overflow, camera, quota: int, job_base: int,
+                 spp: int, seed) -> PoolState:
+    """The pool step from its compaction sort's permutation `perm` of
+    update_plain's `lanes` on, in torch ops: the plain version of KV4
+    (ops/vertex.py:pool_refill) with the image's index_add."""
+    w = camera.image_width
+    # ---- compaction sort before retire/refill: dead lanes (this step's
+    # retirees included) pack into the tail; the refill then issues its
+    # pixel-major camera rays into that tail ----
+    org, dirn, throughput, radiance, pixel, sample, bounce, still, retired = (
+        x[perm] for x in lanes)
+    overflow = s.overflow + wf_overflow
+
+    # ---- retire finished paths: full-width masked add (masked rows add 0,
+    # the same sum as the reference's tail window) ----
+    accum = s.accum.index_add(
+        0, pixel, torch.where(retired[:, None], radiance, 0.0))
+
+    # ---- refill dead lanes with the next un-issued (pixel, sample) of
+    # this shard's slice ----
+    dead = ~still
+    n_dead = dead.sum()
+    rank = torch.cumsum(dead.to(torch.int64), 0) - 1
+    new_local = s.next_flat + rank
+    issue = dead & (new_local < quota)
+    new_flat = new_local + job_base if job_base else new_local
+    pix = new_flat // spp
+    smp = new_flat % spp
+    px = pix % w
+    py = pix // w
+    ctx0 = vrng.Ctx(pixel=pix, sample=smp, bounce=0, seed=seed)
+    g_org, g_dir = camera.generate_rays(px, py, smp, ctx0, s.org.dtype)
+
+    iss = issue[:, None]
+    org = torch.where(iss, g_org, org)
+    dirn = torch.where(iss, g_dir, dirn)
+    throughput = torch.where(iss, 1.0, throughput)
+    radiance = torch.where(iss | retired[:, None], 0.0, radiance)
+    pixel = torch.where(issue, pix, pixel)
+    sample = torch.where(issue, smp, sample)
+    bounce = torch.where(issue, 0, bounce)
+    active = still | issue
+    next_flat = torch.clamp(s.next_flat + n_dead, max=quota)
+
+    return PoolState(org=org, dirn=dirn, throughput=throughput,
+                     radiance=radiance, pixel=pixel, sample=sample,
+                     bounce=bounce, active=active, accum=accum,
+                     next_flat=next_flat, overflow=overflow)
 
 
 # Pool steps run between two host reads of the completion counters.

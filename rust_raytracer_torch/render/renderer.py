@@ -30,6 +30,7 @@ import torch
 
 from ..core import rng as vrng
 from ..ops import intersect as isect
+from ..ops import vertex
 from ..parallel import mesh as pmesh
 from ..scene import compiler as scompiler
 from ..scene import graph as sgraph
@@ -98,6 +99,7 @@ class BatchProgram:
         self.bounces = zeros((), i64)
         self.out = zeros((n, 3), dtype)
         self._step = integrator.bounce_step(static, camera.light_bias, True, kernel)
+        vertex.prepare(pack, static)
         self.loop = graphs.loop_graph(self.prologue, self.body, self.epilogue, self.any_alive,
                                       self.state.depth, self.flag, self.bounces,
                                       camera.max_depth)
