@@ -149,18 +149,19 @@ distinct node and cluster touched is read once.
 
 Since phase 29's slice the path vertex runs as four hand-written kernels
 (rust_raytracer_torch/ops/vertex.py: KV1 vertex_hit, KV2 vertex_shade, KV3
-lane_update with its compaction_key, KV4 pool_refill) on every forward
-path: each pool step launches each once (phases 5, 11, 19, 20, 23 and 25
-count them = steps) and each batch bounce all but the refill (phases 15
-and 28); the fwd+bwd step and the f64 trace take the plain torch ops and
+lane_update with lane_bbox and compaction_key, KV4 pool_refill) on every
+forward path: each pool step launches each once (phases 5, 11, 19, 20, 23
+and 25 count them = steps) and each batch bounce all but the refill
+(phases 15 and 28); the fwd+bwd step and the f64 trace take the plain torch ops and
 launch none (phases 16 and 22).  Each path's log line says which route
 it took.  The graphed BVH8 pool step may hold at most
 MAX_STEP_KERNEL_NODES kernel nodes (phase 25).  Phase 29
 (scripts/vertex_parity.py) holds each vertex kernel against its plain
 version on the inputs of the BVH8 and the wavefront pool's first, a
 mid-render and a drain step at 2^18 lanes, of the fog scene (volume hits),
-of a card under a sky and a sun (with an aperture), and of a scene with
-every texture node kind and material: lanes not bit-equal and max |d| an
+of a card under a sky and a sun (with an aperture), of a scene with
+every texture node kind and material, and of that scene with a rotated,
+non-uniformly scaled sphere (the affine sphere rows): lanes not bit-equal and max |d| an
 output, within vertex_parity.TOLERANCE; then times each kernel against its
 plain version (CUDA events) beside its bound.
 
@@ -201,25 +202,27 @@ CLUSTER_BYTES = 128 * 48       # one cluster's triangle rows
 KERNEL_REPS, PLAIN_REPS = 50, 3
 # kernels a steady cornell_dragon pool step launches eagerly, as measured on
 # the H100 since the path vertex runs as the kernels of ops/vertex.py
-# (before them 1668 and ~1739): the traversal, the four vertex kernels and
-# the key, the sort's, the index_add's and a few fills; a scene without
+# (before them 1668 and ~1739): the traversal, the six launches of the four
+# vertex kernels (KV3 is the update, the box and the key), the sort's, the
+# index_add's and a few fills; a scene without
 # volumes adds none to them (one volume adds tens of kernels to a step),
 # and the metrics recorder none at all.  The BVH8 step's count is exact;
 # the wavefront step's mean over five steps varied by up to 2 across runs
 # before (its L1 stage), so it is held within STEP_SLACK of its count.  A
 # graphed step replays these and 11 copies of the next state into the
 # graph's buffers.
-STEP_LAUNCHES = {"auto": 32, "wavefront": 104}
+STEP_LAUNCHES = {"auto": 34, "wavefront": 106}
 STEP_SLACK = {"auto": 0, "wavefront": 2}
 # the graphed BVH8 pool step's kernel nodes may not pass this (1,653 before
 # the vertex kernels)
 MAX_STEP_KERNEL_NODES = 150
 # the path vertex kernels (ops/vertex.py) a pool step launches once each,
 # and those a batch bounce launches (no refill)
-VERTEX_POOL = ("vertex_hit", "vertex_shade", "lane_update", "compaction_key", "pool_refill")
-VERTEX_BOUNCE = VERTEX_POOL[:4]
+VERTEX_POOL = ("vertex_hit", "vertex_shade", "lane_update", "lane_bbox", "compaction_key",
+               "pool_refill")
+VERTEX_BOUNCE = VERTEX_POOL[:5]
 VERTEX_SOURCES = dict(zip(VERTEX_POOL, ("vertex_hit.cu", "vertex_shade.cu", "lane_update.cu",
-                                        "lane_update.cu", "pool_refill.cu")))
+                                        "lane_update.cu", "lane_update.cu", "pool_refill.cu")))
 
 
 def log(*a):
@@ -3395,7 +3398,7 @@ def main():
         "plain_ms": v_time[name][1],
         "bound_ms": v_time[name][2],
         "bound_by": v_time[name][3],
-        "library_ms": None,
+        "library_ms": v_time[name][5],
         "ms_eager": v_time[name][4],
         "not_bit_equal_share": v_rep.worst_share[name],
         "wavefront_launches": wf_v_launches[name],

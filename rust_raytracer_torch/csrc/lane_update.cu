@@ -10,23 +10,24 @@
 // render/integrator.py:52, :197-208), not a Pallas kernel.  The plain
 // versions are that torch-ops code.
 //
-// Design: the key needs the bounding box of every lane's new origin
-// (torch's amin / amax over the lane axis), so it is two launches.
-// lane_update_kernel (one thread a lane, 256 a block) reads a lane's state
-// and shading once, writes its new state once, reduces the block's box of
-// the new origins and counts its dead lanes; the last block to finish
-// (a counter in a zeroed scratch word) reduces the blocks' boxes into the
-// final one.  compaction_key_kernel then reads each lane's origin,
-// direction and flag with that box and writes the key.  For a key of lanes
-// that no update precedes (the batch bounce's sort of its start state),
-// lane_bbox_kernel reduces the box alone.  min and max are exact and
-// propagate NaN here as torch's do, so the box, and every key, equal the
-// plain version's bit for bit; the update's arithmetic is the plain
-// version's operation for operation.
+// Design: the key needs the bounding box of every lane's origin (torch's
+// amin / amax over the lane axis), so it is two launches.
+// lane_bbox_kernel (one thread a lane, 256 a block) reduces each block's
+// box of the origins; the last block to finish (a counter in a zeroed
+// scratch word) reduces the blocks' boxes into the final one.
+// compaction_key_kernel then reads each lane's origin, direction and flag
+// with that box and writes the key.  min and max are exact and propagate
+// NaN here as torch's do, so the box, and every key, equal the plain
+// version's bit for bit.  lane_update_kernel (one thread a lane) reads a
+// lane's state and shading once and writes its new state once, its
+// arithmetic the plain version's operation for operation; in the pool form
+// it also counts the dead lanes (one ballot a warp, one atomic add a warp)
+// for pool_refill.
 //
-// What bounds it: bytes.  The update reads ~73 bytes a lane and writes
-// ~58; the key reads 25 and writes 8 (0.05 ms for both at 2^18 lanes by
-// 3.35 TB/s).  The per-block boxes add 24 bytes a block.
+// What bounds them: bytes.  The pool update reads 69 bytes a lane (active,
+// throughput, emission, radiance, bounce, one of org / pos and one of
+// dirn / new_dir) and 13 more on a live lane (weight, ended), and writes
+// 58; the box reads 12 (the origin); the key reads 25 and writes 8.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -113,12 +114,12 @@ __device__ __forceinline__ long long expand_bits8(long long v) {
 
 }  // namespace
 
-// pool (pool != 0): state org, dirn, throughput, radiance (n, 3), bounce
-// (n,) int64, active (n,) bool; shading emission, weight, new_dir, pos (n,
-// 3), ended (n,) bool.  Out: org, dirn, throughput, radiance, bounce,
-// still, retired.  batch: bounce, bounce_out and retired are NULL, still is
-// the next alive flag and no depth test applies.  scratch: 2 zeroed
-// uint64 (the dead count, the block counter); partial: 6 a block; box: 6.
+// pool (bounce != NULL): state org, dirn, throughput, radiance (n, 3),
+// bounce (n,) int64, active (n,) bool; shading emission, weight, new_dir,
+// pos (n, 3), ended (n,) bool.  Out: org, dirn, throughput, radiance,
+// bounce, still, retired, and n_dead (a zeroed uint64): the count of lanes
+// not still.  batch: bounce, bounce_out, retired and n_dead are NULL,
+// still is the next alive flag and no depth test applies.
 __global__ void __launch_bounds__(THREADS)
 lane_update_kernel(const float* __restrict__ org, const float* __restrict__ dirn,
                    const float* __restrict__ thr, const float* __restrict__ rad,
@@ -129,46 +130,45 @@ lane_update_kernel(const float* __restrict__ org, const float* __restrict__ dirn
                    float* __restrict__ dirn_out, float* __restrict__ thr_out,
                    float* __restrict__ rad_out, long long* __restrict__ bounce_out,
                    unsigned char* __restrict__ still_out, unsigned char* __restrict__ retired_out,
-                   unsigned long long* scratch, float* partial, float* box, int n,
-                   long long max_depth) {
+                   unsigned long long* n_dead, int n, long long max_depth) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    float lo[3] = {f_inf(), f_inf(), f_inf()}, hi[3] = {-f_inf(), -f_inf(), -f_inf()};
+    bool still = false;
     if (i < n) {
         const bool act = active[i] != 0;
         const float actf = act ? 1.0f : 0.0f;
         const f3 t = ld3(thr + 3 * i), e = ld3(emission + 3 * i);
         st3(rad_out + 3 * i, add3(ld3(rad + 3 * i), scale3(mul3(t, e), actf)));
         st3(thr_out + 3 * i, mul3(t, act ? ld3(weight + 3 * i) : mk3(0.0f, 0.0f, 0.0f)));
-        bool still = act && !ended[i];
+        still = act && !ended[i];
         if (bounce) {
             const long long b = bounce[i] + 1;
             bounce_out[i] = b;
             still = still && b < max_depth;
             retired_out[i] = act && !still;
         }
-        const f3 o = still ? ld3(pos + 3 * i) : ld3(org + 3 * i);
-        st3(org_out + 3 * i, o);
+        st3(org_out + 3 * i, still ? ld3(pos + 3 * i) : ld3(org + 3 * i));
         st3(dirn_out + 3 * i, still ? ld3(new_dir + 3 * i) : ld3(dirn + 3 * i));
         still_out[i] = still ? 1 : 0;
-        lo[0] = hi[0] = o.x;
-        lo[1] = hi[1] = o.y;
-        lo[2] = hi[2] = o.z;
-        const unsigned dead = __ballot_sync(__activemask(), !still);
-        if ((threadIdx.x & 31) == __ffs(__activemask()) - 1 && dead)
-            atomicAdd(scratch, (unsigned long long)__popc(dead));
     }
-    reduce_box(lo, hi, partial, box, scratch + 1);
+    if (n_dead) {
+        // every thread of the warp reaches this ballot (THREADS is a
+        // multiple of 32 and no thread returns above), so the full mask
+        const unsigned dead = __ballot_sync(0xffffffffu, i < n && !still);
+        if ((threadIdx.x & 31) == 0 && dead)
+            atomicAdd(n_dead, (unsigned long long)__popc(dead));
+    }
 }
 
-// The box of org (n, 3) alone: lo, hi into box[6].
+// The box of org (n, 3): lo, hi into box[6].  counter: a zeroed uint64
+// (the block counter); partial: 6 floats a block.
 __global__ void __launch_bounds__(THREADS)
-lane_bbox_kernel(const float* __restrict__ org, unsigned long long* scratch, float* partial,
+lane_bbox_kernel(const float* __restrict__ org, unsigned long long* counter, float* partial,
                  float* box, int n) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     float lo[3] = {f_inf(), f_inf(), f_inf()}, hi[3] = {-f_inf(), -f_inf(), -f_inf()};
     if (i < n)
         for (int k = 0; k < 3; ++k) lo[k] = hi[k] = org[3 * i + k];
-    reduce_box(lo, hi, partial, box, scratch + 1);
+    reduce_box(lo, hi, partial, box, counter);
 }
 
 // integrator._compaction_key with dir_bits = 3
@@ -206,9 +206,8 @@ extern "C" int rrt_lane_update(const void* org, const void* dirn, const void* th
                                const void* emission, const void* weight, const void* new_dir,
                                const void* ended, const void* pos, void* org_out,
                                void* dirn_out, void* thr_out, void* rad_out, void* bounce_out,
-                               void* still_out, void* retired_out, void* scratch,
-                               void* partial, void* box, long long n, long long max_depth,
-                               cudaStream_t stream) {
+                               void* still_out, void* retired_out, void* n_dead, long long n,
+                               long long max_depth, cudaStream_t stream) {
     const int blocks = (int)((n + THREADS - 1) / THREADS);
     lane_update_kernel<<<blocks, THREADS, 0, stream>>>(
         static_cast<const float*>(org), static_cast<const float*>(dirn),
@@ -220,16 +219,15 @@ extern "C" int rrt_lane_update(const void* org, const void* dirn, const void* th
         static_cast<float*>(dirn_out), static_cast<float*>(thr_out),
         static_cast<float*>(rad_out), static_cast<long long*>(bounce_out),
         static_cast<unsigned char*>(still_out), static_cast<unsigned char*>(retired_out),
-        static_cast<unsigned long long*>(scratch), static_cast<float*>(partial),
-        static_cast<float*>(box), (int)n, max_depth);
+        static_cast<unsigned long long*>(n_dead), (int)n, max_depth);
     return (int)cudaGetLastError();
 }
 
-extern "C" int rrt_lane_bbox(const void* org, void* scratch, void* partial, void* box,
+extern "C" int rrt_lane_bbox(const void* org, void* counter, void* partial, void* box,
                              long long n, cudaStream_t stream) {
     const int blocks = (int)((n + THREADS - 1) / THREADS);
     lane_bbox_kernel<<<blocks, THREADS, 0, stream>>>(
-        static_cast<const float*>(org), static_cast<unsigned long long*>(scratch),
+        static_cast<const float*>(org), static_cast<unsigned long long*>(counter),
         static_cast<float*>(partial), static_cast<float*>(box), (int)n);
     return (int)cudaGetLastError();
 }
@@ -257,6 +255,10 @@ static int attrs_of(const void* fn, int* out) {
 
 extern "C" int rrt_lane_update_attrs(int* out) {
     return attrs_of((const void*)lane_update_kernel, out);
+}
+
+extern "C" int rrt_lane_bbox_attrs(int* out) {
+    return attrs_of((const void*)lane_bbox_kernel, out);
 }
 
 extern "C" int rrt_compaction_key_attrs(int* out) {

@@ -24,8 +24,11 @@
 // table, its pcg4d draws from pcg4d.cuh; arithmetic is the plain
 // version's operation for operation.
 //
-// What bounds it: bytes, ~140 read and ~120 written a lane (0.02 ms at
-// 2^18 lanes by 3.35 TB/s); the gathers are random reads of 4-12 bytes.
+// What bounds it: bytes.  Every lane reads 30 (perm, radiance, pixel,
+// still, retired) and writes 93 (the next state, the pixel and radiance
+// for index_add); a lane that keeps its path (not refilled) also reads
+// its org, dirn, throughput, sample and bounce, 52 more.  The gathers are
+// random reads of 1-12 bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -122,14 +125,14 @@ pool_refill_kernel(const long long* __restrict__ perm, const float* __restrict__
 }
 
 // perm: the stable sort's permutation (n,) int64; the lane fields as
-// lane_update_kernel wrote them (unsorted); scratch: its (n_dead, counter);
+// lane_update_kernel wrote them (unsorted); n_dead: its count of dead lanes;
 // next_flat, ov_in, ov_add (or NULL): 0-d int64; cam: the camera table.
 // Out: the next lane fields, ret_pixel (n,) int64 and contrib (n, 3) for
 // the index_add, next_flat_out and ov_out (0-d int64).
 extern "C" int rrt_pool_refill(const void* perm, const void* org, const void* dirn,
                                const void* thr, const void* rad, const void* pixel,
                                const void* sample, const void* bounce, const void* still,
-                               const void* retired, const void* scratch, const void* next_flat,
+                               const void* retired, const void* n_dead, const void* next_flat,
                                const void* ov_in, const void* ov_add, const void* cam,
                                void* org_out, void* dirn_out, void* thr_out, void* rad_out,
                                void* pixel_out, void* sample_out, void* bounce_out,
@@ -145,7 +148,7 @@ extern "C" int rrt_pool_refill(const void* perm, const void* org, const void* di
         static_cast<const float*>(rad), static_cast<const long long*>(pixel),
         static_cast<const long long*>(sample), static_cast<const long long*>(bounce),
         static_cast<const unsigned char*>(still), static_cast<const unsigned char*>(retired),
-        static_cast<const unsigned long long*>(scratch), static_cast<const long long*>(next_flat),
+        static_cast<const unsigned long long*>(n_dead), static_cast<const long long*>(next_flat),
         static_cast<const long long*>(ov_in), static_cast<const long long*>(ov_add),
         static_cast<const float*>(cam), static_cast<float*>(org_out),
         static_cast<float*>(dirn_out), static_cast<float*>(thr_out),

@@ -149,10 +149,23 @@ __device__ __forceinline__ float plane_hit_t(f3 o, f3 d, const float* r, bool ba
     return (in_t && in_uv) ? t : f_inf();
 }
 
-// 3x3 row-major m times v, each row an explicit dot
-__device__ __forceinline__ f3 matvec(const float* m, f3 v) {
-    return f3{m[0] * v.x + m[1] * v.y + m[2] * v.z, m[3] * v.x + m[4] * v.y + m[5] * v.z,
-              m[6] * v.x + m[7] * v.y + m[8] * v.z};
+// 3x3 row-major m times v, in the order of the plain version's products
+// on the card (the affine spheres' rows; scripts/matvec_order.py finds the
+// orders, scripts/vertex_parity.py's affine set holds the kernels to them).
+// `(n, 3) @ m.T` (a cuBLAS gemm) sums each row as one fma chain:
+__device__ __forceinline__ float dot_mm(const float* r, f3 v) {
+    return fmaf(r[2], v.z, fmaf(r[1], v.y, r[0] * v.x));
+}
+__device__ __forceinline__ f3 matvec_mm(const float* m, f3 v) {
+    return f3{dot_mm(m, v), dot_mm(m + 3, v), dot_mm(m + 6, v)};
+}
+// einsum("nij,nj->ni") (a batched cuBLAS gemm) chains the first two and
+// adds the third product:
+__device__ __forceinline__ float dot_bmm(const float* r, f3 v) {
+    return fmaf(r[1], v.y, r[0] * v.x) + r[2] * v.z;
+}
+__device__ __forceinline__ f3 matvec_bmm(const float* m, f3 v) {
+    return f3{dot_bmm(m, v), dot_bmm(m + 3, v), dot_bmm(m + 6, v)};
 }
 
 }  // namespace rrt

@@ -14,9 +14,8 @@
 // bytes, served from L1/L2 to every lane), and writes (t, id) of the
 // nearest sphere and plane and the triangle walk's t_max once (20 bytes).
 // The arithmetic is the plain version's, operation for operation, so
-// (t, id) are equal bit for bit, except that an affine sphere's (org - c)
-// @ inv.T is an explicit dot a row where the plain version's matmul may
-// sum in another order.
+// (t, id) are equal bit for bit; an affine sphere's (org - c) @ inv.T sums
+// in the order of the card's matmul (vertex_common.cuh:matvec_mm).
 //
 // What bounds it: bytes, ~45 a lane (0.0035 ms at 2^18 lanes by 3.35 TB/s)
 // with a handful of primitives; with many spheres or planes, their f32
@@ -51,8 +50,8 @@ vertex_hit_kernel(const float* __restrict__ ftab, const int* __restrict__ itab,
         const float* r = sph + si * SPH_F;
         float a, half_b, c;
         if (affine) {
-            const f3 oc = matvec(r + 4, sub3(o, ld3(r)));
-            const f3 dl = matvec(r + 4, d);
+            const f3 oc = matvec_mm(r + 4, sub3(o, ld3(r)));
+            const f3 dl = matvec_mm(r + 4, d);
             a = len2(dl);
             half_b = dot3(dl, oc);
             c = len2(oc) - 1.0f;

@@ -32,7 +32,8 @@
 // the outputs are equal bit for bit wherever the f32 math functions
 // (sinf, cosf, logf, acosf, atan2f) give what PyTorch's kernels give; the
 // smoke counts the lanes where they do not.  An affine sphere's 3x3
-// products are explicit dots here, einsum / matmul there.
+// products sum in the order of the card's einsum
+// (vertex_common.cuh:matvec_bmm).
 //
 // What bounds it: bytes on cornell_dragon, ~121 a lane plus the 128-byte
 // triangle rows its hits gather (0.014 ms at 2^18 lanes by 3.35 TB/s),
@@ -386,8 +387,8 @@ vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab
         const f3 c = ld3(srow);
         float a, half_b, cc;
         if (affine) {
-            const f3 oc = matvec(srow + 4, sub3(o, c));
-            const f3 dl = matvec(srow + 4, d);
+            const f3 oc = matvec_bmm(srow + 4, sub3(o, c));
+            const f3 dl = matvec_bmm(srow + 4, d);
             a = len2(dl);
             half_b = dot3(dl, oc);
             cc = len2(oc) - 1.0f;
@@ -422,8 +423,8 @@ vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab
         const f3 c = ld3(srow);
         f3 s_n, w_n;
         if (affine) {
-            s_n = matvec(srow + 4, sub3(pos, c));
-            w_n = normalize_eps(matvec(srow + 13, s_n));
+            s_n = matvec_bmm(srow + 4, sub3(pos, c));
+            w_n = normalize_eps(matvec_bmm(srow + 13, s_n));
         } else {
             s_n = div3(sub3(pos, c), srow[3]);
             w_n = s_n;

@@ -11,7 +11,8 @@ tables the kernels read.
                              mixture; emission, weight, next direction,
                              ended, position
   KV3 csrc/lane_update.cu    the lane update after shading (pool and batch
-                             forms) and the int64 compaction key
+                             forms), the origins' bounding box (lane_bbox)
+                             and the int64 compaction key
   KV4 csrc/pool_refill.cu    after the sort: the permutation gather, the
                              radiance to retire, the refill with camera rays
 
@@ -36,9 +37,8 @@ call `prepare`); `camera_table` does the same for KV4's camera constants.
 A texture program of more than MAX_NODES nodes raises ValueError when its
 tables are built.
 
-`launches[name]` counts each kernel's launches (the key's box reduction
-launched with it is not counted apart), `plain_calls[name]` calls routed
-to its plain version.
+`launches[name]` counts each kernel's launches, `plain_calls[name]` calls
+routed to its plain version.
 """
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ from . import _cuda
 from . import intersect as isect
 from . import texture as tex
 
-KERNELS = ("vertex_hit", "vertex_shade", "lane_update", "compaction_key", "pool_refill")
+KERNELS = ("vertex_hit", "vertex_shade", "lane_update", "lane_bbox", "compaction_key",
+           "pool_refill")
 launches = dict.fromkeys(KERNELS, 0)
 plain_calls = dict.fromkeys(KERNELS, 0)
 
@@ -367,64 +368,72 @@ def shade_hits(pack, static, org, dirn, ctx, light_bias: float, hits, merged=Non
     return out
 
 
-def _box_scratch(n, dev):
-    blocks = max(1, (n + THREADS_KEY - 1) // THREADS_KEY)
-    return (torch.zeros(2, dtype=torch.int64, device=dev),
-            torch.empty(blocks * 6, dtype=torch.float32, device=dev),
-            torch.empty(6, dtype=torch.float32, device=dev))
-
-
 def lane_update(org, dirn, throughput, radiance, active, emission, weight, new_dir, ended,
                 pos, bounce=None, max_depth: int = 0):
     """KV3's update on the card.  With `bounce` (the pool): returns (org,
-    dirn, throughput, radiance, bounce, still, retired, scratch, box);
-    without (the batch bounce): (org, dirn, throughput, radiance, alive,
-    scratch, box).  scratch[0] is the dead count, box the new origins'
-    bounding box (lo, hi): what compaction_key and pool_refill read."""
+    dirn, throughput, radiance, bounce, still, retired, n_dead), n_dead a
+    (1,) int64 count of the lanes not still (what pool_refill reads);
+    without (the batch bounce): (org, dirn, throughput, radiance, alive)."""
     n, dev = org.shape[0], org.device
     f32 = torch.float32
     _check(dev, *((x, f32, (n, 3)) for x in (org, dirn, throughput, radiance, emission, weight,
                                               new_dir, pos)),
            (active, torch.bool, (n,)), (ended, torch.bool, (n,)), (bounce, torch.int64, (n,)))
     out = [torch.empty((n, 3), dtype=f32, device=dev) for _ in range(4)]
-    b_out = None if bounce is None else torch.empty(n, dtype=torch.int64, device=dev)
     still = torch.empty(n, dtype=torch.bool, device=dev)
-    retired = None if bounce is None else torch.empty(n, dtype=torch.bool, device=dev)
-    scratch, partial, box = _box_scratch(n, dev)
+    if bounce is None:
+        b_out = retired = n_dead = None
+    else:
+        b_out = torch.empty(n, dtype=torch.int64, device=dev)
+        retired = torch.empty(n, dtype=torch.bool, device=dev)
+        n_dead = torch.zeros(1, dtype=torch.int64, device=dev)
     if n:
         _launch("rrt_lane_update",
                 (org, dirn, throughput, radiance, bounce, active, emission, weight, new_dir,
-                 ended, pos, *out, b_out, still, retired, scratch, partial, box),
+                 ended, pos, *out, b_out, still, retired, n_dead),
                 (n, max_depth), (), dev)
         launches["lane_update"] += 1
     if bounce is None:
-        return (*out, still, scratch, box)
-    return (*out, b_out, still, retired, scratch, box)
+        return (*out, still)
+    return (*out, b_out, still, retired, n_dead)
+
+
+def lane_box(org):
+    """KV3's box on the card: (6,) f32, the lo then hi of `org` (n, 3)
+    over its lanes, as org.amin(0), org.amax(0)."""
+    n, dev = org.shape[0], org.device
+    _check(dev, (org, torch.float32, (n, 3)))
+    blocks = max(1, (n + THREADS_KEY - 1) // THREADS_KEY)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    partial = torch.empty(blocks * 6, dtype=torch.float32, device=dev)
+    box = torch.empty(6, dtype=torch.float32, device=dev)
+    _launch("rrt_lane_bbox", (org, counter, partial, box), (n,), (), dev)
+    launches["lane_bbox"] += 1
+    return box
 
 
 def compaction_key(org, dirn, alive, box=None):
     """KV3's key on the card: render/integrator.py:_compaction_key
-    (dir_bits 3) of the lanes, from `box` (lane_update's) or from a box
-    reduction of `org` launched first."""
+    (dir_bits 3) of the lanes, from `box` (lane_box's), or from lane_box
+    of `org` launched first."""
     n, dev = org.shape[0], org.device
     _check(dev, (org, torch.float32, (n, 3)), (dirn, torch.float32, (n, 3)),
            (alive, torch.bool, (n,)), (box, torch.float32, (6,)))
     key = torch.empty(n, dtype=torch.int64, device=dev)
     if n:
         if box is None:
-            scratch, partial, box = _box_scratch(n, dev)
-            _launch("rrt_lane_bbox", (org, scratch, partial, box), (n,), (), dev)
+            box = lane_box(org)
         _launch("rrt_compaction_key", (org, dirn, alive, box, key), (n,), (), dev)
         launches["compaction_key"] += 1
     return key
 
 
-def pool_refill(perm, lanes, scratch, next_flat, overflow, wf_overflow, cam, quota: int,
+def pool_refill(perm, lanes, n_dead, next_flat, overflow, wf_overflow, cam, quota: int,
                 job_base: int, spp: int, width: int, sqrt_spt: int, has_aperture: bool, seed):
     """KV4 on the card.  `lanes` = (org, dirn, throughput, radiance, pixel,
     sample, bounce, still, retired) as lane_update returned them (unsorted),
-    `perm` the stable sort's permutation of their key, `scratch`
-    lane_update's (its dead count).  Returns (org, dirn, throughput,
+    `perm` the stable sort's permutation of their key, `n_dead`
+    lane_update's count of dead lanes.  Returns (org, dirn, throughput,
     radiance, pixel, sample, bounce, active, ret_pixel, contrib, next_flat,
     overflow): the next lane fields, the pixel and radiance of each sorted
     lane for the image's index_add (0 where it did not retire), and the 0-d
@@ -442,7 +451,7 @@ def pool_refill(perm, lanes, scratch, next_flat, overflow, wf_overflow, cam, quo
               torch.empty((n, 3), dtype=f32, device=dev), torch.empty((), dtype=i64, device=dev),
               torch.empty((), dtype=i64, device=dev)])
     _launch("rrt_pool_refill",
-            (perm, *lanes, scratch, next_flat, overflow, wf_overflow, cam, *out),
+            (perm, *lanes, n_dead, next_flat, overflow, wf_overflow, cam, *out),
             (n, quota, job_base, spp, width, sqrt_spt, int(has_aperture), int(seed) & 0xFFFFFFFF),
             (), dev)
     launches["pool_refill"] += 1

@@ -155,10 +155,11 @@ class BounceState(NamedTuple):
 
 
 def compaction_key(org, dirn, alive):
-    """`_compaction_key` of the lanes: KV3's key kernel on the card
-    (ops/vertex.py:compaction_key), the plain version elsewhere."""
+    """`_compaction_key` of the lanes: KV3's box and key kernels on the
+    card (ops/vertex.py:compaction_key), the plain version elsewhere."""
     if vertex.use_kernels(None, org, dirn):
         return vertex.compaction_key(org.contiguous(), dirn.contiguous(), alive.contiguous())
+    vertex.plain_calls["lane_bbox"] += 1
     vertex.plain_calls["compaction_key"] += 1
     return _compaction_key(org, dirn, alive)
 
@@ -188,7 +189,7 @@ def advance(pack, *lanes):
     """`_advance(*lanes)`: KV3's batch update on the card
     (ops/vertex.py:lane_update), the plain version elsewhere."""
     if vertex.use_kernels(pack, *lanes[:2]):
-        return vertex.lane_update(*(x.contiguous() for x in lanes))[:5]
+        return vertex.lane_update(*(x.contiguous() for x in lanes))
     vertex.plain_calls["lane_update"] += 1
     return _advance(*lanes)
 

@@ -225,15 +225,15 @@ def _local_step(static, camera, spp: int, seed, kernel: str, job_base: int, quot
     def kernel_tail(s, emission, weight, new_dir, ended, pos, wf_overflow):
         """The step after shading on the card: KV3 (update, key), the sort,
         KV4 (gather, retire, refill), the image's index_add."""
-        org, dirn, throughput, radiance, bounce, still, retired, scratch, box = (
+        org, dirn, throughput, radiance, bounce, still, retired, n_dead = (
             vertex.lane_update(s.org, s.dirn, s.throughput, s.radiance, s.active, emission,
                                weight, new_dir, ended, pos, bounce=s.bounce,
                                max_depth=max_depth))
-        perm = torch.sort(vertex.compaction_key(org, dirn, still, box), stable=True).indices
+        perm = torch.sort(vertex.compaction_key(org, dirn, still), stable=True).indices
         (org, dirn, throughput, radiance, pixel, sample, bounce, active, ret_pixel, contrib,
          next_flat, overflow) = vertex.pool_refill(
             perm, (org, dirn, throughput, radiance, s.pixel, s.sample, bounce, still, retired),
-            scratch, s.next_flat, s.overflow, wf_overflow,
+            n_dead, s.next_flat, s.overflow, wf_overflow,
             vertex.camera_table(camera, s.org.device), quota, job_base, spp, w,
             camera.sqrt_spt, camera.aperture_radius is not None, seed)
         return PoolState(org=org, dirn=dirn, throughput=throughput, radiance=radiance,
@@ -244,7 +244,7 @@ def _local_step(static, camera, spp: int, seed, kernel: str, job_base: int, quot
     def plain_tail(s, emission, weight, new_dir, ended, pos, wf_overflow):
         """The step after shading in torch ops: the plain versions of KV3
         and KV4 (with the sort between them)."""
-        for name in ("lane_update", "compaction_key", "pool_refill"):
+        for name in ("lane_update", "lane_bbox", "compaction_key", "pool_refill"):
             vertex.plain_calls[name] += 1
         lanes = update_plain(s, emission, weight, new_dir, ended, pos, max_depth)
         perm = torch.sort(integrator._compaction_key(lanes[0], lanes[1], lanes[7]),

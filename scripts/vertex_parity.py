@@ -1,6 +1,6 @@
 """Hold the path vertex kernels (rust_raytracer_torch/ops/vertex.py: KV1
-vertex_hit, KV2 vertex_shade, KV3 lane_update and compaction_key, KV4
-pool_refill) against their plain PyTorch versions on the card, and time
+vertex_hit, KV2 vertex_shade, KV3 lane_update, lane_bbox and
+compaction_key, KV4 pool_refill) against their plain PyTorch versions on the card, and time
 both.
 
     python3 scripts/vertex_parity.py            # on the GPU, ~1-2 min
@@ -11,10 +11,13 @@ pipeline (its first, a mid-render and a drain step), cornell_dragon with a
 fog sphere (volume hits), a card under a sky and a sun, and
 tests/test_torch_scene.py's texture scene, whose program has every node
 kind (image, checker, solid checker, Perlin marble and turbulence, lerp,
-channel, uv), with every material.  On
+channel, uv), with every material, and the same scene with one sphere
+under a rotation and a non-uniform scale (every sphere then takes the
+affine branch of KV1 and KV2).  On
 a set, each kernel and its plain version get the same inputs: KV1 the
 step's rays; KV2 the plain KV1's hits and the walk's; KV3 the plain KV2's
-shading; the key and KV4 the plain KV3's lanes, KV4 the plain key's sort.
+shading; the box, the key and KV4 the plain KV3's lanes, KV4 the plain
+key's sort and the plain dead count.
 For each output the script prints the lanes that are not bit-equal
 (NaN = NaN) and max |d| over the finite ones, and for KV2 the hit kinds
 and material types of the lanes that differ; `chip_smoke.py` runs the same
@@ -26,9 +29,10 @@ kernel's around one replay of a CUDA graph of KERNEL_REPS calls of its
 wrapper (the device's time, without the host's launch cost), and around
 as many back-to-back eager calls (the wrapper's rate, which the host sets
 for kernels this short); a plain version's around PLAIN_REPS eager calls.
-A bound is the larger of the bytes a lane reads and writes once over
-3.35 TB/s and its f32 operations (counted per lane below) over 67 TFLOP/s
-(NVIDIA H100 SXM).
+The box's library call is torch.aminmax.  A bound is the larger of the
+bytes the set's lanes must read and write once (counted from the set's data
+where a lane's reads depend on it) over 3.35 TB/s and their f32 operations
+(counted per lane below) over 67 TFLOP/s (NVIDIA H100 SXM).
 """
 import os
 import sys
@@ -44,17 +48,14 @@ sys.path.insert(0, os.path.join(HERE, "tests"))
 LANES = 1 << 18
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 KERNEL_REPS, PLAIN_REPS = 50, 3
-KV1, KV2, KV3, KEY, KV4 = ("vertex_hit", "vertex_shade", "lane_update", "compaction_key",
-                           "pool_refill")
+KV1, KV2, KV3, BOX, KEY, KV4 = ("vertex_hit", "vertex_shade", "lane_update", "lane_bbox",
+                                "compaction_key", "pool_refill")
 # the share of a set's lanes that may differ from the plain version in an
 # output, by kernel: none.  The kernels repeat the plain versions'
 # operations in their order (-fmad=false), and their f32 math functions
 # (sinf, cosf, logf, acosf, atan2f) are the ones PyTorch's CUDA kernels
 # call; every lane of every set was bit-equal on the H100 (PERF.md §6)
-TOLERANCE = dict.fromkeys((KV1, KV2, KV3, KEY, KV4), 0.0)
-# bytes a lane reads and writes once, by kernel (see each csrc file)
-LANE_BYTES = {KV1: 24 + 1 + 20, KV2: 24 + 24 + 24 + 48 + 1, KV3: 106 + 58, KEY: 25 + 8,
-              KV4: 82 + 93}
+TOLERANCE = dict.fromkeys((KV1, KV2, KV3, BOX, KEY, KV4), 0.0)
 
 
 def log(*a):
@@ -132,6 +133,18 @@ def fog_scene(g, dragon):
                    g.Isotropic(g.Constant((1.0, 1.0, 1.0))), 0.01)
     return g.SceneDef(world=g.Group(list(dragon.world.items) + [fog]), lights=dragon.lights,
                       config=dict(dragon.config))
+
+
+def affine_scene(g, scene):
+    """`scene` with one more sphere under a rotation and a scale of (1, 2,
+    1): every sphere of the scene then takes the affine branch of KV1 and
+    KV2 (its rows' inverse and forward matrices)."""
+    ellipsoid = g.Transform(g.Sphere((0.0, 0.0, 0.0), 0.5, g.Lambertian(g.Checker(
+        g.Constant((0.9, 0.8, 0.2)), g.Constant((0.1, 0.2, 0.7)), 0.05))))
+    ellipsoid = ellipsoid.scale(1.0, 2.0, 1.0).rotate_z(30.0).rotate_x(20.0).translate(
+        -0.4, 0.2, 2.2)
+    return g.SceneDef(world=g.Group(list(scene.world.items) + [ellipsoid]),
+                      lights=scene.lights, config=dict(scene.config))
 
 
 def small_camera(Camera, position, look_at, width=512, depth=8, f_number=None):
@@ -249,17 +262,20 @@ def hold_set(rep, tag, pack, static, camera, s, kernel, seed=0, quota=None):
         upd = vertex.lane_update(s.org, s.dirn, s.throughput, s.radiance, s.active, *shade_p,
                                  bounce=s.bounce, max_depth=camera.max_depth)
         lanes_k = (*upd[:4], s.pixel, s.sample, *upd[4:7])
-        rep.add(KV3, tag, n, {f: (a, b) for f, a, b in zip(
+        n_dead = (~lanes_p[7]).sum().view(1)
+        pairs = {f: (a, b) for f, a, b in zip(
             ("org", "dirn", "throughput", "radiance", "pixel", "sample", "bounce", "still",
-             "retired"), lanes_k, lanes_p) if f not in ("pixel", "sample")})
+             "retired"), lanes_k, lanes_p) if f not in ("pixel", "sample")}
+        rep.add(KV3, tag, n, {**pairs, "n_dead": (upd[7], n_dead)})
+        box_p = torch.stack([lanes_p[0].amin(dim=0), lanes_p[0].amax(dim=0)])
+        rep.add(BOX, tag, 2, {"lo, hi": (vertex.lane_box(lanes_p[0]).view(2, 3), box_p)})
         key_p = integrator._compaction_key(lanes_p[0], lanes_p[1], lanes_p[7])
-        key_k = vertex.compaction_key(lanes_p[0], lanes_p[1], lanes_p[7], upd[8])
-        key_alone = vertex.compaction_key(lanes_p[0], lanes_p[1], lanes_p[7])
-        rep.add(KEY, tag, n, {"key": (key_k, key_p), "key (own box)": (key_alone, key_p)})
+        rep.add(KEY, tag, n, {"key": (vertex.compaction_key(lanes_p[0], lanes_p[1], lanes_p[7]),
+                                      key_p)})
         perm = torch.sort(key_p, stable=True).indices
         want = poolmod.refill_plain(s, perm, lanes_p, stats["wf_overflow"], camera, quota, 0, 1,
                                     seed)
-        out = vertex.pool_refill(perm, lanes_p, upd[7], s.next_flat, s.overflow,
+        out = vertex.pool_refill(perm, lanes_p, n_dead, s.next_flat, s.overflow,
                                  stats["wf_overflow"], vertex.camera_table(camera, s.org.device),
                                  quota, 0, 1, camera.image_width, camera.sqrt_spt,
                                  camera.aperture_radius is not None, seed)
@@ -277,10 +293,10 @@ def hold_set(rep, tag, pack, static, camera, s, kernel, seed=0, quota=None):
         log(f"  {KV4}, {tag}: image accumulator max |d| {acc_d:.3e} (index_add's atomics sum "
             f"in no fixed order), next_flat and overflow equal")
     return dict(hits=hits_p, walk=(t_tri, i_tri, stats), shade=shade_p, lanes=lanes_p,
-                upd=upd, perm=perm, merged=merged, ctx=ctx, tl=tl)
+                n_dead=n_dead, perm=perm, merged=merged, ctx=ctx, tl=tl)
 
 
-def bounds(pack, static, s, inp):
+def bounds(pack, static, camera, s, inp):
     """Per kernel (bound ms, "bytes" | "operations") at the set's lanes."""
     n = s.org.shape[0]
     ns, np_ = pack.sph_center.shape[0], pack.pln_corner.shape[0]
@@ -289,23 +305,36 @@ def bounds(pack, static, s, inp):
     prog = sum(node_ops.get(nd.kind, 8 * 30 * nd.samples + 20) for nd in static.tex_program)
     t_tri, i_tri, _ = inp["walk"]
     tri_rows = int(torch.unique(i_tri[i_tri >= 0]).numel())
+    live = int(s.active.sum())
+    quota = camera.image_width * camera.image_height
+    issued = max(0, min(int(inp["n_dead"]), quota - int(s.next_flat)))
+    # bytes the set's lanes read and write once (see each csrc file); the
+    # update reads weight and ended on a live lane only, the refill a kept
+    # lane's org, dirn, throughput, sample and bounce only
+    moved = {KV1: n * (24 + 1 + 20),
+             # ray 24, the six hit fields 24, pixel, sample and bounce 24;
+             # four (n, 3) outputs and ended; each triangle row hit, once
+             KV2: n * (24 + 24 + 24 + 48 + 1) + tri_rows * 128,
+             KV3: n * (69 + 58) + live * 13,
+             BOX: n * 12 + 24,
+             KEY: n * (25 + 8),
+             KV4: n * (30 + 93) + (n - issued) * 52}
     ops = {KV1: 5 + 28 * ns + 45 * np_,
            # merge ~20, hit record ~120, program, shading ~150, the NEE
            # sample ~60 and pdf ~60 a light, six pcg4d draws of ~40
            KV2: 20 + 120 + prog + 150 + 60 + 60 * nl + 6 * 40,
-           KV3: 20, KEY: 45, KV4: 80}
-    extra = {KV2: tri_rows * 128}
+           KV3: 20, BOX: 6, KEY: 45, KV4: 80}
     out = {}
     for name in TOLERANCE:
-        b = (n * LANE_BYTES[name] + extra.get(name, 0)) / PEAK_BYTES * 1e3
+        b = moved[name] / PEAK_BYTES * 1e3
         o = n * ops[name] / PEAK_FLOPS * 1e3
         out[name] = (b, "bytes") if b >= o else (o, "operations")
     return out
 
 
 def times(pack, static, camera, s, kernel, inp, card, seed=0):
-    """(kernel ms, plain ms, bound ms, bound by, kernel ms eager) of each
-    kernel on set `s` (see the module docstring)."""
+    """(kernel ms, plain ms, bound ms, bound by, kernel ms eager, library ms
+    or None) of each kernel on set `s` (see the module docstring)."""
     from rust_raytracer_torch.ops import intersect as isect
     from rust_raytracer_torch.ops import vertex
     from rust_raytracer_torch.render import integrator
@@ -316,8 +345,9 @@ def times(pack, static, camera, s, kernel, inp, card, seed=0):
     t_min, lb, ctx, tl = integrator.T_MIN, camera.light_bias, inp["ctx"], inp["tl"]
     hits, (t_tri, i_tri, stats), shade, lanes = (inp["hits"], inp["walk"], inp["shade"],
                                                 inp["lanes"])
-    upd, perm = inp["upd"], inp["perm"]
+    n_dead, perm = inp["n_dead"], inp["perm"]
     cam = vertex.camera_table(camera, s.org.device)
+    box = vertex.lane_box(lanes[0])
 
     def hit_plain():
         return integrator.shade_hits(pack, static, s.org, s.dirn, isect.close_hits(
@@ -328,7 +358,7 @@ def times(pack, static, camera, s, kernel, inp, card, seed=0):
                                     seed)
 
     def refill_kernel():
-        out = vertex.pool_refill(perm, lanes, upd[7], s.next_flat, s.overflow,
+        out = vertex.pool_refill(perm, lanes, n_dead, s.next_flat, s.overflow,
                                  stats["wf_overflow"], cam, quota, 0, 1, camera.image_width,
                                  camera.sqrt_spt, camera.aperture_radius is not None, seed)
         return s.accum.index_add(0, out[8], out[9])
@@ -341,22 +371,28 @@ def times(pack, static, camera, s, kernel, inp, card, seed=0):
         KV3: (lambda: vertex.lane_update(s.org, s.dirn, s.throughput, s.radiance, s.active,
                                          *shade, bounce=s.bounce, max_depth=camera.max_depth),
               lambda: poolmod.update_plain(s, *shade, camera.max_depth)),
-        KEY: (lambda: vertex.compaction_key(lanes[0], lanes[1], lanes[7], upd[8]),
+        BOX: (lambda: vertex.lane_box(lanes[0]),
+              lambda: (lanes[0].amin(dim=0), lanes[0].amax(dim=0))),
+        KEY: (lambda: vertex.compaction_key(lanes[0], lanes[1], lanes[7], box),
               lambda: integrator._compaction_key(lanes[0], lanes[1], lanes[7])),
         KV4: (refill_kernel, refill_plain),
     }
+    library = {BOX: lambda: torch.aminmax(lanes[0], dim=0)}
     out = {}
     with torch.no_grad():
         for name, (k, p) in pairs.items():
+            lib = time_ms(library[name], KERNEL_REPS) if name in library else None
             out[name] = (time_graphed_ms(k, KERNEL_REPS), time_ms(p, PLAIN_REPS),
-                         time_ms(k, KERNEL_REPS))
-    b = bounds(pack, static, s, inp)
-    for name, (k_ms, p_ms, e_ms) in out.items():
+                         time_ms(k, KERNEL_REPS), lib)
+    b = bounds(pack, static, camera, s, inp)
+    for name, (k_ms, p_ms, e_ms, lib) in out.items():
+        lib_txt = "" if lib is None else f", library call {lib:.4f} ms"
         log(f"time {name} x{n}: kernel {k_ms:.4f} ms (graph of {KERNEL_REPS} calls; eager "
             f"back to back {e_ms:.4f} ms), plain {p_ms:.4f} ms (eager, {PLAIN_REPS} calls; CUDA "
-            f"events); bound {b[name][0]:.4f} ms by {b[name][1]} ({b[name][0] / k_ms:.1%} of "
-            f"the kernel's time) ({card})")
-    return {name: (out[name][0], out[name][1], *b[name], out[name][2]) for name in out}
+            f"events){lib_txt}; bound {b[name][0]:.4f} ms by {b[name][1]} "
+            f"({b[name][0] / k_ms:.1%} of the kernel's time) ({card})")
+    return {name: (out[name][0], out[name][1], *b[name], out[name][2], out[name][3])
+            for name in out}
 
 
 def run(card, dragon=None, bvh8_renderer=None, wf_renderer=None):
@@ -396,12 +432,17 @@ def run(card, dragon=None, bvh8_renderer=None, wf_renderer=None):
               ("sky and sun", sky_sun_scene(g),
                small_camera(Camera, (0.0, 0.2, 2.0), (0.0, 0.0, 0.0), f_number=4.0)),
               ("every texture node", texture_scene(g),
+               small_camera(Camera, (0.0, 1.0, 7.0), (0.0, 0.0, 0.0))),
+              ("affine sphere", affine_scene(g, texture_scene(g)),
                small_camera(Camera, (0.0, 1.0, 7.0), (0.0, 0.0, 0.0))))
     for name, scene, cam in others:
         pack, static = compiler.compile_scene(scene, dev)
         states = record_states(pack, static, cam, "auto")
         for tag, s in pick(states)[1:2]:
-            hold_set(rep, f"{name} {tag}", pack, static, cam, s, "auto")
+            inp = hold_set(rep, f"{name} {tag}", pack, static, cam, s, "auto")
+            if pack.sph_inv.shape[0]:
+                log(f"  {name} {tag}: {int((inp['hits'][1] >= 0).sum())} of {s.org.shape[0]} "
+                    f"lanes hit a sphere, each through the affine rows")
         del states, pack
     for name, share in rep.worst_share.items():
         log(f"vertex parity {name}: worst share of a set's lanes not bit-equal {share:.3e} "

@@ -591,6 +591,7 @@ def test_loader_error_propagates(scenes, monkeypatch, which):
             (torch.zeros(n), i64.int(), torch.zeros(n), i64.int(), torch.zeros(n), i64.int())),
         "lane_update": lambda: vertex.lane_update(org, dirn, org, org, flag, org, org, org,
                                                   flag, org, bounce=i64, max_depth=4),
+        "lane_bbox": lambda: vertex.lane_box(org),
         "compaction_key": lambda: vertex.compaction_key(org, dirn, flag),
         "pool_refill": lambda: vertex.pool_refill(
             i64, (org, dirn, org, org, i64, i64, i64, flag, flag), zero, zero, zero, zero,
