@@ -163,4 +163,4 @@ def render_pool_resumable(pack, static, camera, n_pixels: int, spp: int,
     if checkpoint_path:
         save_pool_state(checkpoint_path, state,
                         {"step_count": step_count, "params_hash": phash})
-    return state.accum if mesh is None else poolmod.sum_planes(mesh, state, device)
+    return poolmod.pool_image(state, mesh, device)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import tonemap as tm
+from ..utils import metrics as metricsmod
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -46,10 +47,13 @@ class Film:
         self.samples = 0
 
     def add_samples(self, radiance_sum, n_samples: int):
-        """Add a (H, W, 3) radiance *sum* over n_samples per pixel."""
+        """Add a (H, W, 3) radiance *sum* over n_samples per pixel: spans
+        `film.to_host` (a tensor's copy home) and `film.add`."""
         if isinstance(radiance_sum, torch.Tensor):
-            radiance_sum = radiance_sum.detach().cpu().numpy()
-        self.accum = self.accum + np.asarray(radiance_sum, np.float64)
+            with metricsmod.span("film.to_host"):
+                radiance_sum = radiance_sum.detach().cpu().numpy()
+        with metricsmod.span("film.add"):
+            self.accum = self.accum + np.asarray(radiance_sum, np.float64)
         self.samples += n_samples
 
     def hdr(self) -> np.ndarray:

@@ -41,6 +41,11 @@ and train_step_fn's copies and cross-shard sums.  `integrator.trace`
 (non-differentiable, with its one `alive.any()` read a bounce) always runs
 eagerly: it is the batch program's plain version.  A capture or replay
 that fails raises; nothing carries on eagerly.
+
+On a profiler's trace (utils/metrics.py:span) a GraphedStep's replay is
+span `graphs.replay`, a GraphedGrad's `grad.replay` (its unit the replay's
+index), and every warm-up and capture, a LoopGraph's build included,
+`graphs.capture`, whose count and seconds metrics.totals() keeps.
 """
 from __future__ import annotations
 
@@ -173,16 +178,19 @@ class GraphedStep:
         dev = state[0].device
         key = tuple((t.shape, t.dtype) for t in state)
         cap = self.captures.get(dev)
-        if cap is None or cap.key != key or not same_pack(cap.pack, pack):
+        fresh = cap is None or cap.key != key or not same_pack(cap.pack, pack)
+        if fresh:
             cap = self.captures[dev] = None   # free the old graph first
             cap = self.captures[dev] = self._record(pack, state, key)
-        elif not self._holds(state):
-            for buf, t in zip(cap.inputs, state):
-                buf.copy_(t)
-        counts = launch_counts()
-        cap.graph.replay()
-        _set_launches({k: n + cap.launched.get(k, 0) for k, n in counts.items()})
-        out = cap.inputs if self.donate else type(state)(*(buf.clone() for buf in cap.inputs))
+        with metricsmod.span("graphs.replay"):
+            if not fresh and not self._holds(state):
+                for buf, t in zip(cap.inputs, state):
+                    buf.copy_(t)
+            counts = launch_counts()
+            cap.graph.replay()
+            _set_launches({k: n + cap.launched.get(k, 0) for k, n in counts.items()})
+            out = (cap.inputs if self.donate
+                   else type(state)(*(buf.clone() for buf in cap.inputs)))
         self._last = tuple((weakref.ref(t), t._version) for t in out)
         return out
 
@@ -202,7 +210,7 @@ class GraphedStep:
             for buf, t in zip(inputs, out):
                 buf.copy_(t)
 
-        with torch.no_grad():
+        with metricsmod.timed("graphs.capture"), torch.no_grad():
             graph, launched = _warm_and_capture(lambda: self.fn(pack, inputs), body, dev,
                                                 self._capture)
         self._last = ()
@@ -281,6 +289,7 @@ class GraphedGrad:
         self.fn = fn
         self._capture = capture
         self.captures: Dict[torch.device, Capture] = {}
+        self.replays = 0   # replays issued, each span `grad.replay`'s unit
 
     def __call__(self, pack, *lanes):
         if metricsmod.nan_checks():
@@ -291,13 +300,15 @@ class GraphedGrad:
         if cap is None or cap.key != key or not same_pack(cap.pack, pack):
             self.release(dev)
             cap = self.captures[dev] = self._record(pack, lanes, key)
-        for buf, t in zip(cap.inputs, lanes):
-            buf.copy_(t)
-        counts = launch_counts()
-        cap.graph.replay()
-        _set_launches({k: n + cap.launched.get(k, 0) for k, n in counts.items()})
-        loss, grads = cap.outputs[0]
-        return loss.clone(), tuple(g.clone() for g in grads)
+        self.replays += 1
+        with metricsmod.span("grad.replay", self.replays):
+            for buf, t in zip(cap.inputs, lanes):
+                buf.copy_(t)
+            counts = launch_counts()
+            cap.graph.replay()
+            _set_launches({k: n + cap.launched.get(k, 0) for k, n in counts.items()})
+            loss, grads = cap.outputs[0]
+            return loss.clone(), tuple(g.clone() for g in grads)
 
     def release(self, device=None) -> None:
         """Drop the capture on `device` (every capture without one): its
@@ -321,7 +332,7 @@ class GraphedGrad:
             body()
             outputs.clear()
 
-        with torch.enable_grad():
+        with metricsmod.timed("graphs.capture"), torch.enable_grad():
             graph, launched = _warm_and_capture(warm, body, dev, self._capture)
         return Capture(pack, key, inputs, graph, launched, time.perf_counter() - t0, outputs)
 
@@ -362,38 +373,39 @@ class LoopGraph:
     def __init__(self, prologue: Callable[[], None], body: Callable[[], None],
                  epilogue: Callable[[], None], any_alive, depth, flag, bounces,
                  max_depth: int):
-        t0 = time.perf_counter()
-        dev = any_alive.device
-        counts = launch_counts()
-        try:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.no_grad(), torch.cuda.stream(side):
-                prologue()
-                before = launch_counts()
-                body()
-                after = launch_counts()
-                epilogue()
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.captures, pool = [], None
-            for stage in (prologue, body, epilogue):
-                g = torch.cuda.CUDAGraph(keep_graph=True)
-                # on `side`, not torch.cuda.graph's default stream (cuda_capture)
-                with torch.no_grad(), torch.cuda.device(dev), \
-                        torch.cuda.graph(g, pool=pool, stream=side):
-                    stage()
-                pool = g.pool() if pool is None else pool
-                self.captures.append(g)
-        finally:
-            _set_launches(counts)
-        self.launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        self.launched["loop_cond"] = 1
-        self.device = dev
-        self._handles = loop_cond.build_graph(*(g.raw_cuda_graph() for g in self.captures),
-                                              any_alive, depth, flag, bounces, max_depth)
-        weakref.finalize(self, loop_cond.destroy_graph, *self._handles)
-        torch.cuda.synchronize(dev)
-        self.seconds = time.perf_counter() - t0
+        with metricsmod.timed("graphs.capture"):
+            t0 = time.perf_counter()
+            dev = any_alive.device
+            counts = launch_counts()
+            try:
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.no_grad(), torch.cuda.stream(side):
+                    prologue()
+                    before = launch_counts()
+                    body()
+                    after = launch_counts()
+                    epilogue()
+                torch.cuda.current_stream(dev).wait_stream(side)
+                self.captures, pool = [], None
+                for stage in (prologue, body, epilogue):
+                    g = torch.cuda.CUDAGraph(keep_graph=True)
+                    # on `side`, not torch.cuda.graph's default stream (cuda_capture)
+                    with torch.no_grad(), torch.cuda.device(dev), \
+                            torch.cuda.graph(g, pool=pool, stream=side):
+                        stage()
+                    pool = g.pool() if pool is None else pool
+                    self.captures.append(g)
+            finally:
+                _set_launches(counts)
+            self.launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            self.launched["loop_cond"] = 1
+            self.device = dev
+            self._handles = loop_cond.build_graph(*(g.raw_cuda_graph() for g in self.captures),
+                                                  any_alive, depth, flag, bounces, max_depth)
+            weakref.finalize(self, loop_cond.destroy_graph, *self._handles)
+            torch.cuda.synchronize(dev)
+            self.seconds = time.perf_counter() - t0
 
     def launch(self) -> None:
         """One run of the loop, on the current stream of its device."""

@@ -35,8 +35,8 @@ axis, `accum` (n_shards, n_pixels, 3), `next_flat` and `overflow`
 Each shard compaction-sorts only its own lanes.  Without a mesh the state
 is one PoolState with no shard axis and the step is the one-device step.
 
-`poll_loop` is the host loop that render_pool and
-render/checkpoint.py:render_pool_resumable share.
+`poll_loop` is the host loop that run_pool (render_pool's, and the
+Renderer's) and render/checkpoint.py:render_pool_resumable share.
 """
 from __future__ import annotations
 
@@ -360,10 +360,11 @@ def sum_planes(mesh: pmesh.Mesh, state: ShardedState, device) -> torch.Tensor:
     """The image of a sharded render: the shards' planes copied to `device`
     and added there in shard order (the same image from run to run), then
     all-reduced over the mesh's processes (the reference's join-and-sum)."""
-    image = state[0].accum.to(device, copy=True)
-    for s in state[1:]:
-        image += s.accum.to(device)
-    return pmesh.all_reduce_sum(mesh, image)
+    with metricsmod.span("mesh.join"):
+        image = state[0].accum.to(device, copy=True)
+        for s in state[1:]:
+            image += s.accum.to(device)
+        return pmesh.all_reduce_sum(mesh, image)
 
 
 # what a poll of a sharded state reads, in one read a device
@@ -380,19 +381,23 @@ def poll_loop(pack, step, state, total: int, max_steps: int,
     wavefront overflow packets, was read with the counts of a ShardedState
     and is None otherwise.  With a mesh across processes the counts are the
     global ones, so every process stops at the same poll.  Returns (state,
-    done_steps)."""
-    while done_steps < max_steps:
-        for _ in range(steps_per_poll):
-            state = step(pack, state)
-        done_steps += steps_per_poll
-        if isinstance(state, ShardedState):
-            issued, n_active, overflow = shard_sums(mesh, state, POLL_FIELDS)
-        else:
-            (issued, n_active), overflow = host_sums(mesh, state.next_flat, state.active), None
-        if on_poll is not None:
-            on_poll(state, done_steps, issued, n_active, overflow)
-        if issued >= total and n_active == 0:
-            break
+    done_steps).  The loop is span `pool.loop`, each poll's read and
+    on_poll span `pool.poll` (utils/metrics.py:span)."""
+    with metricsmod.span("pool.loop"):
+        while done_steps < max_steps:
+            for _ in range(steps_per_poll):
+                state = step(pack, state)
+            done_steps += steps_per_poll
+            with metricsmod.span("pool.poll"):
+                if isinstance(state, ShardedState):
+                    issued, n_active, overflow = shard_sums(mesh, state, POLL_FIELDS)
+                else:
+                    (issued, n_active), overflow = (
+                        host_sums(mesh, state.next_flat, state.active), None)
+                if on_poll is not None:
+                    on_poll(state, done_steps, issued, n_active, overflow)
+            if issued >= total and n_active == 0:
+                break
     return state, done_steps
 
 
@@ -400,27 +405,49 @@ def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
                 device, seed=0, metrics: Optional[metricsmod.RenderMetrics] = None,
                 kernel: str = "auto", dtype=torch.float32,
                 mesh: Optional[pmesh.Mesh] = None, step: Optional[Callable] = None):
-    """Render n_pixels * spp samples through a pool of n_lanes on `device`.
+    """Render n_pixels * spp samples through a pool of n_lanes on `device`:
+    `run_pool`'s state joined into the image by `pool_image`.  Returns the
+    (n_pixels, 3) radiance sum (divide by spp for the mean); with `mesh`,
+    the sum of every shard's plane on `device`, the same in every process."""
+    state = run_pool(pack, static, camera, n_pixels, spp, n_lanes, device, seed=seed,
+                     metrics=metrics, kernel=kernel, dtype=dtype, mesh=mesh, step=step)
+    return pool_image(state, mesh, device)
 
-    Returns the (n_pixels, 3) radiance sum (divide by spp for the mean).
+
+def pool_image(state, mesh: Optional[pmesh.Mesh], device) -> torch.Tensor:
+    """The (n_pixels, 3) radiance sum of a finished pool's state on
+    `device`: its accum, or with a mesh the shards' planes summed
+    (`sum_planes`)."""
+    return state.accum if mesh is None else sum_planes(mesh, state, device)
+
+
+def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
+             device, seed=0, metrics: Optional[metricsmod.RenderMetrics] = None,
+             kernel: str = "auto", dtype=torch.float32,
+             mesh: Optional[pmesh.Mesh] = None, step: Optional[Callable] = None):
+    """Run n_pixels * spp samples through a pool of n_lanes on `device`
+    until every job is done; returns the final state (span `pool.init`
+    around its making, then `poll_loop`).
+
     `metrics`, a utils/metrics.RenderMetrics, records at each poll the
     steps, the live lanes, the jobs issued and the wavefront overflow
     packets out of all 8-lane packets traced, as the reference's pool
     does.  With `mesh`, n_lanes (a multiple of the shard count) is the
     global pool, of which this process holds its shards' share, each
-    shard's state on its device (`init_shards`); the result is the sum of
-    every shard's plane on `device`, the same in every process.  `step`,
-    if given, is the make_step of these arguments, built before (a
-    Renderer keeps its step, and with it the graphs it captured).
+    shard's state on its device (`init_shards`), and the state returned
+    is a ShardedState.  `step`, if given, is the make_step of these
+    arguments, built before (a Renderer keeps its step, and with it the
+    graphs it captured).
     """
     total = n_pixels * spp
     n_shards = 1 if mesh is None else mesh.n_shards
     if n_lanes % n_shards:
         raise ValueError(f"n_lanes {n_lanes} not divisible by {n_shards} shards")
-    if mesh is None:
-        state = init_state(n_lanes, n_pixels, device, dtype)
-    else:
-        state = init_shards(n_lanes, n_pixels, mesh, dtype)
+    with metricsmod.span("pool.init"):
+        if mesh is None:
+            state = init_state(n_lanes, n_pixels, device, dtype)
+        else:
+            state = init_shards(n_lanes, n_pixels, mesh, dtype)
     if step is None:
         step = make_step(pack, static, camera, total, spp, seed, kernel=kernel, mesh=mesh)
 
@@ -436,6 +463,4 @@ def render_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     state, _ = poll_loop(pack, step, state, total,
                          max_pool_steps(total, n_lanes, camera.max_depth, n_shards),
                          on_poll=on_poll, mesh=mesh)
-    if mesh is None:
-        return state.accum
-    return sum_planes(mesh, state, device)
+    return state

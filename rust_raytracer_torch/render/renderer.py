@@ -225,6 +225,7 @@ class Renderer:
         self.pack, self.static = scompiler.compile_scene(scene, self.device, dtype)
         isect.resolve_kernel(kernel, self.pack)
         self._bounces = 0
+        self.renders = 0    # renders started, each span `render`'s unit
         self._graphs = {}   # the pool steps and batch runs built, with their graphs
 
     def _trace_lanes(self, pack, px, py, sample_id, seed):
@@ -246,12 +247,22 @@ class Renderer:
         """Render the full image: mode="pool", the persistent ray pool, or
         mode="batch", the bounded-loop schedule.  `metrics`, if given (a
         utils/metrics.RenderMetrics for the pool, a BatchMetrics for the
-        batch schedule), records the schedule's counters."""
+        batch schedule), records the schedule's counters; a RenderMetrics
+        also the render's host seconds (`render_s`), up to the image in the
+        Film on the host.  The render is span `render` on a profiler's
+        trace (utils/metrics.py:span), its index (`renders`) its unit."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
-        if mode == "pool":
-            return self.render_pool(spp=spp, metrics=metrics)
-        return self.render_batched(spp=spp, metrics=metrics)
+        t0 = time.perf_counter()
+        self.renders += 1
+        with metricsmod.span("render", self.renders):
+            if mode == "pool":
+                film = self.render_pool(spp=spp, metrics=metrics)
+            else:
+                film = self.render_batched(spp=spp, metrics=metrics)
+        if isinstance(metrics, metricsmod.RenderMetrics):
+            metrics.render_s += time.perf_counter() - t0
+        return film
 
     def render_pool(self, spp: Optional[int] = None,
                     metrics: Optional[metricsmod.RenderMetrics] = None) -> filmmod.Film:
@@ -271,13 +282,15 @@ class Renderer:
             lambda: poolmod.make_step(self.pack, self.static, camera, total, total_spp,
                                       self.seed, kernel=self.kernel, mesh=self.mesh,
                                       graph=self.graph))
-        accum = poolmod.render_pool(
+        state = poolmod.run_pool(
             self.pack, self.static, camera, n_pixels, total_spp, n_lanes,
             self.device, seed=self.seed, metrics=metrics, kernel=self.kernel,
             dtype=self.dtype, mesh=self.mesh, step=step,
         )
-        film = filmmod.Film(w, h)
-        film.add_samples(accum.reshape(h, w, 3), total_spp)
+        with metricsmod.span("render.tail"):
+            accum = poolmod.pool_image(state, self.mesh, self.device)
+            film = filmmod.Film(w, h)
+            film.add_samples(accum.reshape(h, w, 3), total_spp)
         return film
 
     def trace_batch(self, px, py, sample_id, stats: Optional[dict] = None) -> torch.Tensor:

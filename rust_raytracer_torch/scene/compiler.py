@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import texture as tex
+from ..utils import metrics as metricsmod
 from . import bvh8, bvh_builder, graph
 from . import pack as sp
 
@@ -771,9 +772,11 @@ def compile_numpy(scene: graph.SceneDef, dtype=np.float32):
 def compile_scene(scene: graph.SceneDef, device, dtype=torch.float32):
     """Compile a host scene graph into (ScenePack on `device`, SceneStatic).
     `dtype` is torch.float32, or torch.float64 for the validation trace
-    (its pack runs only the "jnp" walk, ops/intersect.py)."""
+    (its pack runs only the "jnp" walk, ops/intersect.py).  Each compile
+    adds to utils/metrics.totals()'s "scene.compile"."""
     np_dtype = {torch.float32: np.float32, torch.float64: np.float64}.get(dtype)
     if np_dtype is None:
         raise TypeError(f"compile dtype must be torch.float32 or torch.float64, got {dtype}")
-    leaves, tex_data, static = compile_numpy(scene, np_dtype)
-    return sp.from_numpy(leaves, tex_data, device), static
+    with metricsmod.timed("scene.compile"):
+        leaves, tex_data, static = compile_numpy(scene, np_dtype)
+        return sp.from_numpy(leaves, tex_data, device), static

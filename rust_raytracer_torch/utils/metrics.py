@@ -1,12 +1,22 @@
-"""Observability: structured render metrics, torch.profiler tracing, and a
-NaN-debug mode (port of rust_raytracer_tpu/utils/metrics.py).
+"""Observability: structured render metrics, spans on torch.profiler's
+trace, process-wide totals of rare events, and a NaN-debug mode (port of
+rust_raytracer_tpu/utils/metrics.py).
 
 The reference prints per-thread wall-clock only (camera.rs:235-236); here a
-render records throughput counters a script can scrape, per-stage timings,
-and profiler traces.
+render records throughput counters a script can scrape, and the program
+marks where its host work happens:
 
-Everything here is opt-in and costs nothing when unused: no global state is
-touched unless a context manager is entered.
+- `span(name)` opens a `torch.profiler.record_function("rrt." + name)`
+  while the profiler records, so the span lands in the same trace as the
+  card's kernels and copies, on the same clock.  With the profiler off it
+  reads one flag and does nothing else: no synchronize, no tensor, no
+  counter.  Spans are never entered inside a stream capture's body.
+- `timed(name)` is a span that also adds its event's count and seconds to
+  process-wide totals (`totals()`), always on: for rare events (a graph
+  capture, a scene compile), a few a process.
+
+Otherwise opt-in: no global state is touched unless a context manager is
+entered.
 """
 from __future__ import annotations
 
@@ -16,7 +26,7 @@ import os
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +44,9 @@ class RenderMetrics:
     samples_issued: int = 0
     steps: int = 0
     lane_bounces: int = 0          # lanes advanced x steps (pool work units)
-    wall_start: float = field(default_factory=time.time)
-    stage_seconds: Dict[str, float] = field(default_factory=dict)
+    # host seconds of the render, from its start until its image is in the
+    # Film on the host (the copy home synchronises); Renderer.render sets it
+    render_s: float = 0.0
     bounce_alive: List[int] = field(default_factory=list)  # live lanes a poll
     # wavefront traversal capacity overflow: packets that hit a static cap
     # (and may have dropped a real hit) / all 8-lane packets traced.  emit()
@@ -54,29 +65,21 @@ class RenderMetrics:
         self.samples_issued = issued
         self.bounce_alive.append(int(n_alive))
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.stage_seconds[name] = (
-                self.stage_seconds.get(name, 0.0) + time.time() - t0
-            )
-
     def summary(self) -> dict:
-        wall = max(time.time() - self.wall_start, 1e-9)
+        """The counters, and the rates over the render's own seconds
+        (`render_s`; None before a render has set it)."""
         total = self.n_pixels * self.spp
         occ = float(np.mean(self.bounce_alive)) if self.bounce_alive else 0.0
+        wall = self.render_s or None
         out = {
             "pixel_samples": total,
             "samples_issued": self.samples_issued,
-            "pixel_samples_per_s": self.samples_issued / wall,
-            "rays_per_s": self.lane_bounces / wall,  # 1 closest-hit per lane-bounce
+            "pixel_samples_per_s": self.samples_issued / wall if wall else None,
+            # 1 closest-hit per lane-bounce
+            "rays_per_s": self.lane_bounces / wall if wall else None,
             "steps": self.steps,
             "mean_occupancy": occ,
             "wall_s": wall,
-            "stages_s": dict(self.stage_seconds),
         }
         if self.wf_total_packets:
             out["wf_overflow_packets"] = self.wf_overflow_packets
@@ -99,6 +102,61 @@ class RenderMetrics:
         line = json.dumps({"render_metrics": s})
         print(line, file=stream)
         return line
+
+
+class span:
+    """`with span(name, unit):` marks the block as `rrt.<name>` on
+    torch.profiler's trace while the profiler records
+    (`torch.autograd._profiler_enabled()`); `unit`, the index of the render
+    or step the block belongs to, is passed as the record_function's
+    `args` (an enclosed span without one takes its enclosing span's).
+    Otherwise it only reads that flag."""
+    __slots__ = ("name", "unit", "_record")
+    _units: List[Optional[str]] = []   # the open spans' units, while profiling
+
+    def __init__(self, name: str, unit=None):
+        self.name, self.unit, self._record = name, unit, None
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            units = span._units
+            unit = str(self.unit) if self.unit is not None else (units[-1] if units else None)
+            units.append(unit)
+            self._record = torch.profiler.record_function("rrt." + self.name, unit)
+            self._record.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._record is not None:
+            self._record.__exit__(*exc)
+            self._record = None
+            span._units.pop()
+        return False
+
+
+_totals: Dict[str, List] = {}
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """A `span(name)` whose completed event also adds one and its host
+    seconds to the process-wide totals of `name` (`totals()`), whether or
+    not the profiler records.  For rare events only: graph captures and
+    scene compiles."""
+    t0 = time.perf_counter()
+    with span(name):
+        yield
+    entry = _totals.setdefault(name, [0, 0.0])
+    entry[0] += 1
+    entry[1] += time.perf_counter() - t0
+
+
+def totals() -> Dict[str, Tuple[int, float]]:
+    """{name: (events, seconds)} of every `timed` event of this process:
+    "graphs.capture" (GraphedStep's and GraphedGrad's warm-up and capture, a
+    LoopGraph's build, each ending in a synchronize) and "scene.compile"
+    (scene/compiler.py:compile_scene)."""
+    return {name: (n, secs) for name, (n, secs) in _totals.items()}
 
 
 @contextlib.contextmanager
