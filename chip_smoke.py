@@ -165,6 +165,17 @@ non-uniformly scaled sphere (the affine sphere rows): lanes not bit-equal and ma
 output, within vertex_parity.TOLERANCE; then times each kernel against its
 plain version (CUDA events) beside its bound.
 
+The differentiable trace's row gathers take a hand-written backward on the
+card (rust_raytracer_torch/ops/gather.py, csrc/row_gather.cu): the fwd+bwd
+steps launch it once per routed gather whose rows reach the loss (at most
+GATHERS_A_BOUNCE a bounce of cornell_dragon; phases 16 and 26 count
+them), the f64 trace its float64 instance (phase 22).  Phase 30
+(scripts/gather_check.py) holds it against a float64 index_add_ on
+synthetic sets and on the calls of one benchmark `dragon_grad` step,
+checks its bits over two runs and in a graph against eager, the step's
+bits graphed against eager, and times it beside its bound and PyTorch's
+index_put_(accumulate=True).
+
 Any failed check raises, so the exit code is non-zero.  The last two lines
 of standard output are a JSON line describing each kernel and the final
 JSON result line.
@@ -221,6 +232,10 @@ MAX_STEP_KERNEL_NODES = 150
 VERTEX_POOL = ("vertex_hit", "vertex_shade", "lane_update", "lane_bbox", "compaction_key",
                "pool_refill")
 VERTEX_BOUNCE = VERTEX_POOL[:5]
+# routed row gathers (ops/gather.py) a differentiable cornell_dragon bounce
+# makes: the planes', the triangles' and the materials' rows (the scene has
+# no sphere); each has one backward where its rows reach the loss
+GATHERS_A_BOUNCE = 3
 VERTEX_SOURCES = dict(zip(VERTEX_POOL, ("vertex_hit.cu", "vertex_shade.cu", "lane_update.cu",
                                         "lane_update.cu", "lane_update.cu", "pool_refill.cu")))
 
@@ -1780,7 +1795,7 @@ def f64_phase(dev, card):
     card refused with TypeError, and no K1, K3 or path vertex kernel launch
     in the phase (an f64 pack takes the vertex's plain route)."""
     from rust_raytracer_torch.core import rng as vrng
-    from rust_raytracer_torch.ops import bvh8, threaded, vertex
+    from rust_raytracer_torch.ops import bvh8, gather, threaded, vertex
     from rust_raytracer_torch.render import integrator
     from rust_raytracer_torch.render.camera import Camera
     from rust_raytracer_torch.render.renderer import Renderer
@@ -1791,6 +1806,7 @@ def f64_phase(dev, card):
     cam = Camera(image_width=16, aspect_ratio=1.0, samples_per_pixel=1, max_depth=3,
                  position=(0, 0.3, 1.6), look_at=(0, 0, 0), focal_length=35.0)
     k1, k3 = bvh8.launches, threaded.launches
+    row_bwd = gather.launches["row_gather_bwd"]
     reset_vertex()
     out = []
     for where in (dev, torch.device("cpu")):
@@ -1843,6 +1859,7 @@ def f64_phase(dev, card):
         if not abs(an - v) <= 1e-5 + 1e-3 * abs(v):
             raise AssertionError(f"f64 central difference {field}{idx}: {v} vs autograd {an}")
         fd_worst = max(fd_worst, abs(an - v) / max(abs(v), 1e-300))
+    row_bwd = gather.launches["row_gather_bwd"] - row_bwd
     try:
         Renderer(probe_scene(), cam, device=dev, dtype=f64)
     except TypeError as e:
@@ -1854,10 +1871,12 @@ def f64_phase(dev, card):
         + ", ".join(f"{f} {v:.3e}" for f, v in grad_gaps.items())
         + f" (bound 1e-9); {len(fd_g)} central differences (eps 1e-6) vs autograd on the card: "
         f"worst rel {fd_worst:.3e} (rtol 1e-3, atol 1e-5); f64 trace {ms_g:.1f} ms on the card, "
-        f"{ms_c:.1f} ms on the cpu; auto on the card refused: TypeError; {vertex_route()} "
-        f"({card})")
+        f"{ms_c:.1f} ms on the cpu; auto on the card refused: TypeError; {vertex_route()}; "
+        f"row gather backward launches {row_bwd} (float64) ({card})")
     if not (rad_gap <= 1e-9 and max(grad_gaps.values()) <= 1e-9):
         raise AssertionError("the card's f64 trace disagrees with the CPU's")
+    if not row_bwd > 0:
+        raise AssertionError("the f64 gradient on the card launched no row gather backward")
     if (bvh8.launches, threaded.launches) != (k1, k3) or "jnp" not in refused or any(
             vertex.launches.values()):
         raise AssertionError("the f64 phase launched a CUDA traversal or vertex kernel")
@@ -2411,6 +2430,7 @@ def grad_graph_phase(pack, static, camera, card, kept):
             wall_ms = (time.perf_counter() - t0) * 1e3
             cap = the_capture(graphed.grad)
             nodes = sum(graph_nodes(cap.graph).values())
+            row_per = cap.launched.get("row_gather_bwd", 0)
             if row is None:
                 held = torch.cuda.memory_allocated() - base
                 torch.cuda.empty_cache()
@@ -2458,7 +2478,8 @@ def grad_graph_phase(pack, static, camera, card, kept):
             if not max(gaps) <= min(spread, 1e-5):
                 raise AssertionError(f"grad graph {kernel} {remat}: gradients off by "
                                      f"{max(gaps):.3e}, eager vs eager {spread:.3e}")
-            if len(graphed.captures) != 1 or launched != {name: 3 * per} or (
+            if len(graphed.captures) != 1 or launched != {
+                    name: 3 * per, "row_gather_bwd": 3 * row_per} or (
                     bvh8.plain_calls, threaded.plain_calls) != plain:
                 raise AssertionError(f"grad graph {kernel} {remat}: captures "
                                      f"{len(graphed.captures)}, launches {launched}")
@@ -3184,7 +3205,9 @@ def main():
         cap = the_capture(step.grad)
         nodes = graph_nodes(cap.graph)
         if not (threaded.launches == 4 * 20 and threaded.plain_calls == 0
-                and cap.launched == {"threaded_traverse": 20}
+                and set(cap.launched) == {"threaded_traverse", "row_gather_bwd"}
+                and cap.launched["threaded_traverse"] == 20
+                and 0 < cap.launched["row_gather_bwd"] <= 20 * GATHERS_A_BOUNCE
                 and not any(vertex.launches.values())):
             raise AssertionError(f"fwd+bwd {remat}: K3 launches {threaded.launches} in 4 "
                                  f"replays, plain calls {threaded.plain_calls}, a capture's "
@@ -3293,6 +3316,15 @@ def main():
     v_rep, v_time = vertex_parity.run(card, dragon=scene, bvh8_renderer=renderer,
                                       wf_renderer=wf_renderer)
     log(f"vertex parity phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 30. the row gathers' backward against a float64 index_add_, its
+    # bits over two runs and in a graph, one dragon_grad step graphed
+    # against eager, and its times beside its bound and index_put_ ----
+    import gather_check
+
+    t0 = time.perf_counter()
+    row_entry = gather_check.run(card)
+    log(f"row gather phase: {time.perf_counter() - t0:.1f} s")
 
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")
@@ -3404,7 +3436,7 @@ def main():
         "wavefront_launches": wf_v_launches[name],
         "batch_launches": b_v_launches[name],
         "render_device_ms": split[name][0],
-    } for name in VERTEX_POOL]}))
+    } for name in VERTEX_POOL] + [row_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,6 +27,7 @@ from ..core import math as vmath
 from ..core import rng as vrng
 from ..scene import pack as sp
 from . import bvh8
+from . import gather
 from . import threaded
 from . import wavefront
 
@@ -478,7 +479,7 @@ def hit_attributes(pack, org, dirn, hit: Hit) -> HitAttributes:
                 pack.sph_mat.to(dtype)[:, None]]
         if sph_affine:
             cols += [pack.sph_inv.reshape(ns, 9), pack.sph_fwd.reshape(ns, 9)]
-        sph_row = torch.cat(cols, dim=1)[_clip(prim, ns)]
+        sph_row = gather.rows(torch.cat(cols, dim=1), _clip(prim, ns), "sph_row")
         sc_ = sph_row[:, 0:3]
         if sph_affine:
             inv_ = sph_row[:, 5:14].reshape(n, 3, 3)
@@ -500,17 +501,18 @@ def hit_attributes(pack, org, dirn, hit: Hit) -> HitAttributes:
         t_eval = torch.where(hit.kind == sp.PRIM_SPHERE, t_sph, t_eval)
     pln_row = None
     if pack.pln_corner.shape[0]:
-        pln_row = torch.cat(
+        pln_row = gather.rows(torch.cat(
             [pack.pln_corner, pack.pln_dual_u, pack.pln_dual_v,
              pack.pln_normal, pack.pln_uhalf, pack.pln_vhalf,
-             pack.pln_mat.to(dtype)[:, None]], dim=1)[_clip(prim, pack.pln_corner.shape[0])]
+             pack.pln_mat.to(dtype)[:, None]], dim=1), _clip(prim, pack.pln_corner.shape[0]),
+            "pln_row")
         nrm_ = pln_row[:, 9:12]
         denom = vmath.dot(nrm_, dirn)
         t_pln = vmath.dot(nrm_, pln_row[:, 0:3] - org) / torch.where(
             denom == 0.0, torch.ones_like(denom), denom)
         t_eval = torch.where(hit.kind == sp.PRIM_PLANE, t_pln, t_eval)
     n_tri = pack.tri_v0.shape[0]
-    tri_row = pack.tri_attr[_clip(prim, n_tri)] if n_tri else None
+    tri_row = gather.rows(pack.tri_attr, _clip(prim, n_tri), "tri_attr") if n_tri else None
     if tri_row is not None:
         e1_ = tri_row[:, 3:6]
         e2_ = tri_row[:, 6:9]

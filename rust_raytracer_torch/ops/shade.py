@@ -18,6 +18,7 @@ import torch
 from ..core import math as vmath
 from ..core import rng
 from ..scene import pack as sp
+from . import gather
 from . import intersect as isect
 from . import lights as lt
 from . import texture as tex
@@ -54,11 +55,11 @@ def shade(pack, light_list: Sequence[Tuple[int, int]], tex_values, org, dirn,
 
     unit_dir = vmath.normalize(dirn, 1e-20)
 
-    mrow = torch.cat(
+    mrow = gather.rows(torch.cat(
         [pack.mat_type.to(dtype)[:, None], pack.mat_albedo_tex.to(dtype)[:, None],
          pack.mat_rough_tex.to(dtype)[:, None], pack.mat_inv_ior[:, None],
          pack.mat_ior[:, None], pack.mat_normal_tex.to(dtype)[:, None]],
-        dim=1)[attr.mat.to(torch.int64)]
+        dim=1), attr.mat.to(torch.int64), "mrow")
     mtype = mrow[:, 0].to(torch.int32)
     albedo = tex.gather_values(tex_values, mrow[:, 1].to(torch.int32))
     rough = tex.gather_values(tex_values, mrow[:, 2].to(torch.int32))[:, 0]

@@ -56,7 +56,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from ..ops import bvh8, loop_cond, threaded, vertex
+from ..ops import bvh8, gather, loop_cond, threaded, vertex
 from ..ops import intersect as isect
 from ..ops import wavefront as wf
 from ..utils import metrics as metricsmod
@@ -74,9 +74,11 @@ def applies(device, kernel: str, pack) -> bool:
 
 def launch_counts() -> Dict[str, int]:
     """The kernel wrappers' launch counters (ops/bvh8.py, ops/threaded.py,
-    ops/wavefront.py, ops/loop_cond.py, ops/vertex.py), by kernel name."""
+    ops/wavefront.py, ops/loop_cond.py, ops/vertex.py, ops/gather.py), by
+    kernel name."""
     return {"bvh8_traverse": bvh8.launches, "threaded_traverse": threaded.launches,
-            **wf.launches, "loop_cond": loop_cond.launches, **vertex.launches}
+            **wf.launches, "loop_cond": loop_cond.launches, **vertex.launches,
+            **gather.launches}
 
 
 def _set_launches(counts: Dict[str, int]) -> None:
@@ -85,6 +87,7 @@ def _set_launches(counts: Dict[str, int]) -> None:
     wf.launches.update({k: counts[k] for k in wf.KERNELS})
     loop_cond.launches = counts["loop_cond"]
     vertex.launches.update({k: counts[k] for k in vertex.KERNELS})
+    gather.launches.update({k: counts[k] for k in gather.launches})
 
 
 def cuda_capture(body: Callable[[], None], device) -> torch.cuda.CUDAGraph:

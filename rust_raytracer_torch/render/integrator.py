@@ -37,6 +37,7 @@ from torch.utils import checkpoint as ckpt
 
 from ..core import math as vmath
 from ..core import rng as vrng
+from ..ops import gather
 from ..ops import intersect as isect
 from ..ops import shade as shd
 from ..ops import texture as tex
@@ -170,7 +171,8 @@ def _sort_lanes(s: BounceState, routed: bool = False) -> BounceState:
     bounce), else the plain version."""
     key = (compaction_key if routed else _compaction_key)(s.org, s.dirn, s.alive)
     perm = torch.sort(key, stable=True).indices
-    return BounceState(*(x[perm] for x in s[:-2]), depth=s.depth, seed=s.seed)
+    return BounceState(*(gather.rows(x, perm, "lanes") for x in s[:-2]), depth=s.depth,
+                       seed=s.seed)
 
 
 def _advance(org, dirn, throughput, radiance, alive, emission, weight, next_dir, ended, pos):
