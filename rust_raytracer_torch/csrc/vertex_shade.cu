@@ -52,6 +52,9 @@
 using namespace rrt;
 
 #define THREADS 128
+// slots of the free-flight counter: a block's warps add to slot
+// blockIdx % VOL_SLOTS, so no one address takes every warp's atomic
+#define VOL_SLOTS 32
 
 namespace {
 
@@ -310,7 +313,10 @@ __device__ __forceinline__ f3 cosine_about(f3 nrm, const Ctx& ctx, uint32_t stre
 // come).  pixel, sample (n,) int64; bounce (n,) int64 with bounce_stride 1,
 // or one int64 (stride 0), or NULL and bounce_val; seed one int64 or NULL
 // and seed_val.  Out: emission, weight, new_dir, pos (n, 3) f32, ended (n,)
-// bool.
+// bool.  vol_count (VOL_SLOTS int64), if not NULL (merged == 1 only),
+// gains the lanes whose merged hit is a volume's scattering event, of
+// those alive (n,) bool marks (all lanes if alive is NULL): one atomic a
+// warp, into its block's slot.
 __global__ void __launch_bounds__(THREADS)
 vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab,
                     const float* __restrict__ tri_attr, const float* __restrict__ org,
@@ -320,6 +326,8 @@ vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab
                     const int* __restrict__ i_c, const int* __restrict__ kind_in,
                     const long long* __restrict__ pixel, const long long* __restrict__ sample,
                     const long long* __restrict__ bounce, const long long* __restrict__ seed,
+                    const unsigned char* __restrict__ alive,
+                    unsigned long long* __restrict__ vol_count,
                     float* __restrict__ emission_out, float* __restrict__ weight_out,
                     float* __restrict__ dir_out, unsigned char* __restrict__ ended_out,
                     float* __restrict__ pos_out, int n, int merged, int bounce_stride,
@@ -339,6 +347,15 @@ vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab
         t = t_a[i];
         kind = kind_in[i];
         prim = i_a[i];
+        if (vol_count) {
+            // every lane of the warp that is still here votes; its lowest adds
+            const bool scatter = kind == PRIM_VOLUME && (alive == nullptr || alive[i]);
+            const unsigned mask = __activemask();
+            const unsigned votes = __ballot_sync(mask, scatter);
+            if (votes && (int)(threadIdx.x & 31u) == __ffs(mask) - 1)
+                atomicAdd(vol_count + (blockIdx.x & (VOL_SLOTS - 1)),
+                          (unsigned long long)__popc(votes));
+        }
     } else {
         const float ts = t_a[i], tp = t_b[i];
         const float tt = i_c[i] >= 0 ? t_c[i] : f_inf();
@@ -599,7 +616,8 @@ extern "C" int rrt_vertex_shade(const void* ftab, const void* itab, const void* 
                                 const void* i_a, const void* t_b, const void* i_b,
                                 const void* t_c, const void* i_c, const void* kind_in,
                                 const void* pixel, const void* sample, const void* bounce,
-                                const void* seed, void* emission, void* weight, void* new_dir,
+                                const void* seed, const void* alive, void* vol_count,
+                                void* emission, void* weight, void* new_dir,
                                 void* ended, void* pos, long long n, long long merged,
                                 long long bounce_stride, long long bounce_val,
                                 long long seed_val, float light_bias, float one_minus_bias,
@@ -614,6 +632,7 @@ extern "C" int rrt_vertex_shade(const void* ftab, const void* itab, const void* 
         static_cast<const int*>(i_c), static_cast<const int*>(kind_in),
         static_cast<const long long*>(pixel), static_cast<const long long*>(sample),
         static_cast<const long long*>(bounce), static_cast<const long long*>(seed),
+        static_cast<const unsigned char*>(alive), static_cast<unsigned long long*>(vol_count),
         static_cast<float*>(emission), static_cast<float*>(weight), static_cast<float*>(new_dir),
         static_cast<unsigned char*>(ended), static_cast<float*>(pos), (int)n, (int)merged,
         (int)bounce_stride, bounce_val, seed_val, light_bias, one_minus_bias);

@@ -42,12 +42,14 @@ routed to its plain version.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..utils import metrics as metricsmod
 from . import _cuda
 from . import intersect as isect
 from . import texture as tex
@@ -73,6 +75,7 @@ LIGHT_I, PROXY_F, NODE_F, NODE_I = 2, 4, 1, 8
 CAMERA_FLOATS = 20
 
 THREADS_KEY = 256   # csrc/lane_update.cu's block: one box a block
+VOLUME_SLOTS = 32   # csrc/vertex_shade.cu:VOL_SLOTS, the free-flight counter's
 
 
 class VertexTables(NamedTuple):
@@ -328,10 +331,14 @@ def analytic_hits(pack, static, org, dirn, t_min: float, alive=None):
     return out
 
 
-def shade_hits(pack, static, org, dirn, ctx, light_bias: float, hits, merged=None):
+def shade_hits(pack, static, org, dirn, ctx, light_bias: float, hits, merged=None,
+               alive=None, volume_hits=None):
     """KV2: (emission, weight, new_dir, ended, pos) on the card.  `hits` is
     (t_sph, i_sph, t_pln, i_pln, t_tri, i_tri); or, with `merged` =
-    (t, kind, prim), the merged hit after the volumes (`hits` unused)."""
+    (t, kind, prim), the merged hit after the volumes (`hits` unused).
+    With `merged` and `volume_hits` ((VOLUME_SLOTS,) int64, read as its
+    sum), the kernel adds to it the lanes (of `alive`, or all) whose hit is
+    a volume's scattering event."""
     n, dev = org.shape[0], org.device
     tb = tables(pack, static)
     f32 = torch.float32
@@ -354,6 +361,8 @@ def shade_hits(pack, static, org, dirn, ctx, light_bias: float, hits, merged=Non
     if bounce is not None and bounce.numel() not in (1, n):
         raise ValueError("the shading kernel takes one bounce or one a lane")
     _check(dev, *((x, torch.int64, None) for x in (pixel, sample, bounce, seed)))
+    alive = alive if volume_hits is not None else None
+    _check(dev, (alive, torch.bool, (n,)), (volume_hits, torch.int64, (VOLUME_SLOTS,)))
     out = (torch.empty((n, 3), dtype=f32, device=dev), torch.empty((n, 3), dtype=f32, device=dev),
            torch.empty((n, 3), dtype=f32, device=dev), torch.empty(n, dtype=torch.bool, device=dev),
            torch.empty((n, 3), dtype=f32, device=dev))
@@ -361,7 +370,7 @@ def shade_hits(pack, static, org, dirn, ctx, light_bias: float, hits, merged=Non
         emission, weight, new_dir, ended, pos = out
         _launch("rrt_vertex_shade",
                 (tb.ftab, tb.itab, pack.tri_attr, org, dirn, *ins, pixel, sample, bounce, seed,
-                 emission, weight, new_dir, ended, pos),
+                 alive, volume_hits, emission, weight, new_dir, ended, pos),
                 (n, int(merged is not None), b_stride, b_val, s_val),
                 (light_bias, 1.0 - light_bias), dev)
         launches["vertex_shade"] += 1
@@ -464,10 +473,14 @@ def attributes():
     return {name: _cuda.attributes("rrt_" + name) for name in KERNELS}
 
 
-def fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel, t_min):
-    """KV1 -> the triangle walk -> (the volumes' torch ops) -> KV2: a path
-    vertex on the card, as render/integrator.py:shade_vertex returns it:
-    (emission, weight, new_dir, ended, pos, stats)."""
+def fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel, t_min,
+                 volume_hits=None):
+    """KV1 -> the triangle walk -> (the volumes' torch ops, span
+    `vertex.volumes` outside a capture) -> KV2: a path vertex on the card,
+    as render/integrator.py:shade_vertex returns it: (emission, weight,
+    new_dir, ended, pos, stats).  In a scene with volumes KV2 adds the
+    `alive` lanes' scattering events to `volume_hits` (the pool step's
+    counter, (VOLUME_SLOTS,) int64 read as its sum), one atomic a warp."""
     org, dirn = org.contiguous(), dirn.contiguous()
     with torch.no_grad():
         t_sph, i_sph, t_pln, i_pln, tri_tmax = analytic_hits(pack, static, org, dirn, t_min,
@@ -476,9 +489,11 @@ def fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel, t_min)
                                                         kernel=kernel, return_stats=True)
         merged = None
         if pack.vol_kinds:
-            merged = isect.merge_volumes(pack, org, dirn, t_min, ctx, t_sph, i_sph, t_pln,
-                                         i_pln, t_tri, i_tri)
+            with (contextlib.nullcontext() if torch.cuda.is_current_stream_capturing()
+                  else metricsmod.span("vertex.volumes")):
+                merged = isect.merge_volumes(pack, org, dirn, t_min, ctx, t_sph, i_sph, t_pln,
+                                             i_pln, t_tri, i_tri)
         return (*shade_hits(pack, static, org, dirn, ctx, light_bias,
                             (t_sph, i_sph, t_pln, i_pln, t_tri.contiguous(), i_tri.contiguous()),
-                            merged), stats)
+                            merged, alive, volume_hits), stats)
 

@@ -154,8 +154,11 @@ class GraphedStep:
     torch.cuda.graphs requires; it builds the kernel library and lazily
     built constants, and counts the launches one call makes.  Neither the
     warm-up nor the capture moves the launch counters (`launch_counts`);
-    each replay advances them by the warm-up's count.  Under
-    metrics.debug_nans the step runs `fn` eagerly.
+    each replay advances them by the warm-up's count.  `counters` are
+    tensors that `fn` adds to in place (its metric counters, read by the
+    graph as static buffers): the warm-up's additions to them are taken
+    back, so a step is counted once.  Under metrics.debug_nans the step
+    runs `fn` eagerly.
 
     With `donate`, the step returns the buffers themselves, as the
     reference's donated state: a step issues the replay and nothing else,
@@ -168,10 +171,11 @@ class GraphedStep:
     """
 
     def __init__(self, fn: Callable, capture: Optional[Callable] = None,
-                 donate: bool = False):
+                 donate: bool = False, counters: tuple = ()):
         self.fn = fn
         self._capture = capture
         self.donate = donate
+        self.counters = counters
         self.captures: Dict[torch.device, Capture] = {}
         self._last = ()
 
@@ -213,9 +217,14 @@ class GraphedStep:
             for buf, t in zip(inputs, out):
                 buf.copy_(t)
 
+        def warm():
+            kept = [c.clone() for c in self.counters]
+            self.fn(pack, inputs)
+            for c, k in zip(self.counters, kept):
+                c.copy_(k)
+
         with metricsmod.timed("graphs.capture"), torch.no_grad():
-            graph, launched = _warm_and_capture(lambda: self.fn(pack, inputs), body, dev,
-                                                self._capture)
+            graph, launched = _warm_and_capture(warm, body, dev, self._capture)
         self._last = ()
         return Capture(pack, key, inputs, graph, launched, time.perf_counter() - t0)
 

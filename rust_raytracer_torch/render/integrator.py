@@ -42,6 +42,7 @@ from ..ops import intersect as isect
 from ..ops import shade as shd
 from ..ops import texture as tex
 from ..ops import vertex
+from ..scene import pack as sp
 from ..utils import metrics as metricsmod
 
 REMAT_MODES = ("none", "hits", "full")
@@ -117,24 +118,31 @@ def shade_hits(pack, static, org, dirn, hit, ctx, light_bias):
 
 
 def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
-                 kernel: str = "auto"):
+                 kernel: str = "auto", volume_hits=None):
     """One path vertex: closest hit, texture program, NEE-mixture shading,
     miss -> background.
 
     Returns (emission, weight, new_dir, ended, pos, stats) as the
     reference; stats["wf_overflow"] is the number of packets that
     overflowed a wavefront cap this vertex (a 0-d int64 tensor on the
-    device; 0 for the exact walks).  On the card (ops/vertex.py:use_kernels)
-    this is KV1, the walk and KV2 (ops/vertex.py:fused_vertex); its plain
-    version, which the CPU runs, is `intersect` and `shade_hits`.
+    device; 0 for the exact walks).  `volume_hits`, the pool step's
+    (ops/vertex.py:VOLUME_SLOTS,) int64 counter read as its sum, if given
+    in a scene with volumes, has the vertex's free-flight scattering
+    events of the `alive` lanes added to it in place.  On the
+    card (ops/vertex.py:use_kernels) this is KV1, the walk and KV2
+    (ops/vertex.py:fused_vertex); its plain version, which the CPU runs,
+    is `intersect` and `shade_hits`.
     """
     if vertex.use_kernels(pack, org, dirn):
         return vertex.fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel,
-                                   T_MIN)
+                                   T_MIN, volume_hits)
     vertex.plain_calls["vertex_hit"] += 1
     vertex.plain_calls["vertex_shade"] += 1
     hit, stats = isect.intersect(pack, org, dirn, T_MIN, ctx, alive=alive, kernel=kernel,
                                  return_stats=True)
+    if volume_hits is not None and pack.vol_kinds:
+        scatter = hit.kind == sp.PRIM_VOLUME
+        volume_hits[0] += (scatter if alive is None else scatter & alive).sum()
     return (*shade_hits(pack, static, org, dirn, hit, ctx, light_bias), stats)
 
 

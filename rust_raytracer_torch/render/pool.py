@@ -171,18 +171,31 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
     distinct cards they run at the same time.  A stacked state
     (init_state with n_shards, a loaded checkpoint) is placed once
     (`place_state`) at the step that receives it.  `step.shard_steps`
-    holds the shards' own steps, in order."""
+    holds the shards' own steps, in order.
+
+    `step.volume_counters` holds each shard's free-flight counter: a
+    (vertex.VOLUME_SLOTS,) int64 tensor on its device, read as its sum,
+    that the step owns (a graph's static buffer), to which, in a scene with
+    volumes, every step adds the scattering events of its live lanes (the
+    shading kernel's one atomic a warp, no launch of its own); a scene
+    without volumes leaves it alone.  `run_pool` zeroes it at a render's
+    start and reads it at its end."""
     total = int(total)
+    counters = []
 
     def local(dev, job_base, quota, donate=False):
-        fn = _local_step(static, camera, spp, seed, kernel, job_base, quota)
+        fn = _local_step(static, camera, spp, seed, kernel, job_base, quota, dev)
+        counters.append(fn.volume_hits)
         if graph and graphs.applies(dev, kernel, pack):
-            return graphs.GraphedStep(fn, donate=donate)
+            return graphs.GraphedStep(fn, donate=donate,
+                                      counters=(fn.volume_hits,) if pack.vol_kinds else ())
         return fn
 
     if mesh is None:
         vertex.prepare(pack, static, camera)
-        return local(pack.device, 0, total)
+        step = local(pack.device, 0, total)
+        step.volume_counters = tuple(counters)
+        return step
     shards = [(dev, local(dev, *_shard_quota(mesh.first + i, mesh.n_shards, total),
                           donate=True))
               for i, dev in enumerate(mesh.devices)]
@@ -197,21 +210,28 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
                             for (dev, local), part in zip(shards, s, strict=True))
 
     step.shard_steps = tuple(local for _, local in shards)
+    step.volume_counters = tuple(counters)
     return step
 
 
-def _local_step(static, camera, spp: int, seed, kernel: str, job_base: int, quota: int):
+def _local_step(static, camera, spp: int, seed, kernel: str, job_base: int, quota: int,
+                device=None):
     """The step of one shard's lanes (the reference's step_local): it issues
     jobs job_base + [0, quota) of the flat grid, counting them in its
-    next_flat (0-d).  The one-device step is job_base 0, quota total."""
+    next_flat (0-d).  The one-device step is job_base 0, quota total.  In
+    a scene with volumes it adds the scattering events of its live lanes to
+    `step.volume_hits`, a (vertex.VOLUME_SLOTS,) int64 tensor on `device`
+    (torch's default device if None) read as its sum."""
     w = camera.image_width
     max_depth = camera.max_depth
     light_bias = camera.light_bias
+    volume_hits = torch.zeros(vertex.VOLUME_SLOTS, dtype=torch.int64, device=device)
 
     def step(pack, s: PoolState) -> PoolState:
         ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=s.bounce, seed=seed)
         emission, weight, new_dir, ended, pos, stats = integrator.shade_vertex(
-            pack, static, s.org, s.dirn, ctx, light_bias, s.active, kernel=kernel)
+            pack, static, s.org, s.dirn, ctx, light_bias, s.active, kernel=kernel,
+            volume_hits=volume_hits if pack.vol_kinds else None)
         if vertex.use_kernels(pack, s.org, s.dirn):
             out = kernel_tail(s, emission, weight, new_dir, ended, pos, stats["wf_overflow"])
         else:
@@ -251,6 +271,7 @@ def _local_step(static, camera, spp: int, seed, kernel: str, job_base: int, quot
                           stable=True).indices
         return refill_plain(s, perm, lanes, wf_overflow, camera, quota, job_base, spp, seed)
 
+    step.volume_hits = volume_hits
     return step
 
 
@@ -356,6 +377,16 @@ def shard_sums(mesh: Optional[pmesh.Mesh], state: ShardedState, fields) -> tuple
     return tuple(int(x) for x in pmesh.all_reduce_sum(mesh, torch.tensor(sums)).tolist())
 
 
+def volume_scatters(mesh: Optional[pmesh.Mesh], counters) -> int:
+    """The sum of the free-flight `counters` (make_step's
+    `volume_counters`) over this process's shards and the mesh's
+    processes, a host int: one small read a shard."""
+    total = sum(int(c.sum()) for c in counters)
+    if mesh is None or not mesh.multiprocess:
+        return total
+    return int(pmesh.all_reduce_sum(mesh, torch.tensor([total]))[0])
+
+
 def sum_planes(mesh: pmesh.Mesh, state: ShardedState, device) -> torch.Tensor:
     """The image of a sharded render: the shards' planes copied to `device`
     and added there in shard order (the same image from run to run), then
@@ -432,10 +463,12 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     `metrics`, a utils/metrics.RenderMetrics, records at each poll the
     steps, the live lanes, the jobs issued and the wavefront overflow
     packets out of all 8-lane packets traced, as the reference's pool
-    does.  With `mesh`, n_lanes (a multiple of the shard count) is the
-    global pool, of which this process holds its shards' share, each
-    shard's state on its device (`init_shards`), and the state returned
-    is a ShardedState.  `step`, if given, is the make_step of these
+    does, and in a scene with volumes the render's free-flight scattering
+    events (`volume_hits`: the step's counters, zeroed here and read once
+    the loop has ended).  With `mesh`, n_lanes (a multiple of the shard
+    count) is the global pool, of which this process holds its shards'
+    share, each shard's state on its device (`init_shards`), and the
+    state returned is a ShardedState.  `step`, if given, is the make_step of these
     arguments, built before (a Renderer keeps its step, and with it the
     graphs it captured).
     """
@@ -450,6 +483,10 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
             state = init_shards(n_lanes, n_pixels, mesh, dtype)
     if step is None:
         step = make_step(pack, static, camera, total, spp, seed, kernel=kernel, mesh=mesh)
+    counters = (getattr(step, "volume_counters", ())
+                if metrics is not None and pack.vol_kinds else ())
+    for c in counters:
+        c.zero_()
 
     def on_poll(state, done_steps, issued, n_active, overflow):
         if metrics is not None:
@@ -463,4 +500,6 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     state, _ = poll_loop(pack, step, state, total,
                          max_pool_steps(total, n_lanes, camera.max_depth, n_shards),
                          on_poll=on_poll, mesh=mesh)
+    if counters:
+        metrics.volume_hits = volume_scatters(mesh, counters)
     return state

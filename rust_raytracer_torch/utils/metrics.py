@@ -54,6 +54,10 @@ class RenderMetrics:
     # nothing: octree.rs:63-116 visits every overlapped leaf).
     wf_overflow_packets: int = 0
     wf_total_packets: int = 0
+    # free-flight scattering events in volumes, of live lanes: the pool
+    # step's counter (on the card the shading kernel's), read when the
+    # render's loop has ended; 0 in a scene without volumes
+    volume_hits: int = 0
 
     def record_step(self, n_alive: int, n_lanes: int, issued: int,
                     weight: int = 1):
@@ -81,6 +85,8 @@ class RenderMetrics:
             "mean_occupancy": occ,
             "wall_s": wall,
         }
+        if self.volume_hits:
+            out["volume_hits"] = self.volume_hits
         if self.wf_total_packets:
             out["wf_overflow_packets"] = self.wf_overflow_packets
             out["wf_overflow_frac"] = self.wf_overflow_packets / self.wf_total_packets
