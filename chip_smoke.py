@@ -83,11 +83,11 @@ paths (`sharded_launches`).
 
 Then the CUDA graphs (render/graphs.py; phase 25): on the card every pool
 render above replays a captured graph a step, and the phases that hook a
-step's Python (the recorded steps, the fog render's volume count) or check
-STEP_LAUNCHES run the eager step.  Phase 25 steps the main path's BVH8 and
-wavefront pools eagerly and graphed from one start, in turns, 20 steps
-each (lane state bit-equal, accumulator within float order, the graphed
-steps' kernel launches = steps); renders the main path both ways in turns
+step's Python (the recorded steps) or check STEP_LAUNCHES run the eager
+step.  Phase 25 steps the main path's BVH8 and wavefront pools eagerly
+and graphed from one start, in turns, 20 steps each (lane state
+bit-equal, accumulator within float order, the graphed steps' kernel
+launches = steps); renders the main path both ways in turns
 (eager, graphed with its capture, graphed, eager): rates, wall ms/step,
 the graph's nodes a step read from libcuda beside STEP_LAUNCHES, capture
 seconds, peak memory, images within float order; and splits a steady
@@ -176,6 +176,17 @@ checks its bits over two runs and in a graph against eager, the step's
 bits graphed against eager, and times it beside its bound and PyTorch's
 index_put_(accumulate=True).
 
+In a scene with volumes the pool step and the batch bounce launch one more
+kernel between the walk and KV2, the free-flight kernel KV-FF
+(ops/vertex.py:free_flight, csrc/free_flight.cu): the hit merge and each
+volume's free flight, in place of ops/intersect.py:merge_volumes's torch
+ops (phases 19-20 count its launches = steps, and read the scattering
+events from the step's counter).  Phase 31 (scripts/free_flight_check.py)
+holds it bit for bit against merge_volumes on recorded cornell_smoke and
+fog steps and on random rays through every boundary kind and three
+seeded scenes of rotated boxes and ellipsoids, a graph replay against
+the eager call, and times it beside its bound and the plain version.
+
 Any failed check raises, so the exit code is non-zero.  The last two lines
 of standard output are a JSON line describing each kernel and the final
 JSON result line.
@@ -216,7 +227,8 @@ KERNEL_REPS, PLAIN_REPS = 50, 3
 # (before them 1668 and ~1739): the traversal, the six launches of the four
 # vertex kernels (KV3 is the update, the box and the key), the sort's, the
 # index_add's and a few fills; a scene without
-# volumes adds none to them (one volume adds tens of kernels to a step),
+# volumes adds none to them (a scene with volumes adds one, the free-flight
+# kernel KV-FF, in place of the ~190 torch ops its step launched before),
 # and the metrics recorder none at all.  The BVH8 step's count is exact;
 # the wavefront step's mean over five steps varied by up to 2 across runs
 # before (its L1 stage), so it is held within STEP_SLACK of its count.  A
@@ -251,6 +263,16 @@ def reset_vertex():
     torch.cuda.synchronize()
     for name in vertex.KERNELS:
         vertex.launches[name] = vertex.plain_calls[name] = 0
+
+
+def vertex_want(n, names=VERTEX_POOL, free_flight=0):
+    """vertex.launches after n steps (or bounces) that launch each of
+    `names` once, and KV-FF `free_flight` times in all (a step of a scene
+    with volumes launches it once)."""
+    from rust_raytracer_torch.ops import vertex
+
+    return {**dict.fromkeys(vertex.KERNELS, 0), **dict.fromkeys(names, n),
+            "free_flight": free_flight}
 
 
 def vertex_route():
@@ -1548,18 +1570,16 @@ def volume_intersect_parity(scene, dev, card):
 
 def fog_pool_render(scene, camera, dev, card):
     """cornell_dragon with one fog sphere (the port's graph) through the
-    pool at the main path's size: K1 and the path vertex kernels launch
-    every step and no plain walk or plain vertex runs, lanes stop in the
-    volume (counted on the eager step, whose Python runs every step, from
-    the volumes' torch ops that the shading kernel takes its merged hit
-    from), the image is finite; then the same render through the graphed
-    step (the volumes' spans captured): K1 and vertex launches = steps, the
-    image within float order of the eager one."""
+    pool at the main path's size: K1, the path vertex kernels and the
+    free-flight kernel KV-FF launch every step and no plain walk or plain
+    vertex runs, lanes stop in the volume (the step's free-flight counter,
+    RenderMetrics.volume_hits, which the shading kernel adds to), the image
+    is finite; then the same render through the graphed step: K1, vertex
+    and KV-FF launches = steps, the same count of volume hits, the image
+    within float order of the eager one."""
     from rust_raytracer_torch.ops import bvh8, vertex
-    from rust_raytracer_torch.ops import intersect as isect
     from rust_raytracer_torch.render.renderer import Renderer
     from rust_raytracer_torch.scene import graph as g
-    from rust_raytracer_torch.scene import pack as sp
     from rust_raytracer_torch.utils.metrics import RenderMetrics
 
     white = g.Lambertian(g.Constant((0.73, 0.73, 0.73)))
@@ -1568,29 +1588,18 @@ def fog_pool_render(scene, camera, dev, card):
     fog_scene = g.SceneDef(world=g.Group(list(scene.world.items) + [fog]),
                            lights=scene.lights, config=dict(scene.config))
     renderer = Renderer(fog_scene, camera, batch_size=LANES, device=dev, graph=False)
-    hits, real = [], isect.merge_volumes
-
-    def counting(*a, **k):
-        out = real(*a, **k)
-        hits.append((out[1] == sp.PRIM_VOLUME).sum())
-        return out
-
     metrics = RenderMetrics()
     torch.cuda.synchronize()
     bvh8.launches = bvh8.plain_calls = 0
     reset_vertex()
-    isect.merge_volumes = counting
-    try:
-        t0 = time.perf_counter()
-        film = renderer.render(mode="pool", metrics=metrics)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    finally:
-        isect.merge_volumes = real
-    vol_hits = int(torch.stack(hits).sum())
+    t0 = time.perf_counter()
+    film = renderer.render(mode="pool", metrics=metrics)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    vol_hits = metrics.volume_hits
     hdr = film.hdr()
-    if not (bvh8.launches == metrics.steps == len(hits) > 0 and bvh8.plain_calls == 0
-            and vertex.launches == dict.fromkeys(VERTEX_POOL, metrics.steps)
+    if not (bvh8.launches == metrics.steps > 0 and bvh8.plain_calls == 0
+            and vertex.launches == vertex_want(metrics.steps, free_flight=metrics.steps)
             and not any(vertex.plain_calls.values())
             and vol_hits > 0 and np.isfinite(hdr).all() and hdr.mean() > 0):
         raise AssertionError(f"fog pool render: K1 launches {bvh8.launches}, steps "
@@ -1614,10 +1623,12 @@ def fog_pool_render(scene, camera, dev, card):
     g_secs = time.perf_counter() - t0
     agree, rel = image_agreement(g_hdr, hdr)
     log(f"fog pool render, graphed: {total / g_secs:.1f} pixel-samples/s ({g_secs:.3f} s with "
-        f"its capture), {g_metrics.steps} steps, K1 launches {bvh8.launches}; image vs the "
+        f"its capture), {g_metrics.steps} steps, K1 launches {bvh8.launches}, "
+        f"{g_metrics.volume_hits} lane-bounces stopped in the volume; image vs the "
         f"eager render: pixel agreement {agree:.6f}, mean |d|/mean {rel:.3e} ({card})")
     if not (bvh8.launches == g_metrics.steps == metrics.steps and agree >= 0.999999
-            and rel <= 1e-5 and vertex.launches == dict.fromkeys(VERTEX_POOL, metrics.steps)):
+            and rel <= 1e-5 and g_metrics.volume_hits == vol_hits
+            and vertex.launches == vertex_want(metrics.steps, free_flight=metrics.steps)):
         raise AssertionError(f"the graphed fog render differs from the eager one (vertex "
                              f"launches {vertex.launches})")
 
@@ -1664,7 +1675,9 @@ def cli_render(argv, spp, dev, card):
     from rust_raytracer_torch.ops import vertex
     if not (rc == 0 and len(lines) == 1 and plain == 0
             and lines[0]["samples_issued"] == lines[0]["pixel_samples"] == w * h * spp
-            and vertex.launches == dict.fromkeys(VERTEX_POOL, lines[0]["steps"])
+            and vertex.launches == vertex_want(
+                lines[0]["steps"],
+                free_flight=lines[0]["steps"] if argv[0] == "cornell_smoke" else 0)
             and not any(vertex.plain_calls.values())):
         raise AssertionError(f"cli {argv}: rc {rc}, metrics {lines}, png {w}x{h}, plain {plain}, "
                              f"{vertex_route()}")
@@ -2992,7 +3005,7 @@ def main():
     launches, plain_calls = bvh8.launches, bvh8.plain_calls
     v_launches = dict(vertex.launches)
     if not (launches > 0 and launches == metrics.steps and plain_calls == 0
-            and v_launches == dict.fromkeys(VERTEX_POOL, metrics.steps)
+            and v_launches == vertex_want(metrics.steps)
             and not any(vertex.plain_calls.values())):
         raise AssertionError(
             f"main path: {launches} kernel launches, {metrics.steps} pool steps, "
@@ -3085,7 +3098,7 @@ def main():
     if not (wf_metrics.steps > 0 and wf_launches == want
             and bvh8.launches == 0 and bvh8.plain_calls == 0
             and not any(wf.plain_calls.values())
-            and wf_v_launches == dict.fromkeys(VERTEX_POOL, wf_metrics.steps)
+            and wf_v_launches == vertex_want(wf_metrics.steps)
             and not any(vertex.plain_calls.values())):
         raise AssertionError(
             f"wavefront main path: launches {wf_launches}, {wf_metrics.steps} pool steps, "
@@ -3136,7 +3149,7 @@ def main():
     batch_s = time.perf_counter() - t0
     k3_launches, lc_launches = threaded.launches, loop_cond.launches
     b_v_launches = dict(vertex.launches)
-    if b_v_launches != {**dict.fromkeys(VERTEX_BOUNCE, b_metrics.bounces), "pool_refill": 0} \
+    if b_v_launches != vertex_want(b_metrics.bounces, VERTEX_BOUNCE) \
             or any(vertex.plain_calls.values()):
         raise AssertionError(f"batch path: {b_metrics.bounces} bounces; {vertex_route()}")
     if not (k3_launches == b_metrics.bounces == lc_launches > 0 and threaded.plain_calls == 0
@@ -3325,6 +3338,15 @@ def main():
     t0 = time.perf_counter()
     row_entry = gather_check.run(card)
     log(f"row gather phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 31. the free-flight kernel against merge_volumes on recorded and
+    # random sets (every boundary kind), a graph replay against the eager
+    # call, and its time beside its bound and the plain version ----
+    import free_flight_check
+
+    t0 = time.perf_counter()
+    free_flight_check.run(card)
+    log(f"free flight phase: {time.perf_counter() - t0:.1f} s")
 
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")

@@ -1,7 +1,8 @@
-// Shared by the path vertex kernels (vertex_hit.cu, vertex_shade.cu,
-// lane_update.cu, pool_refill.cu): 3-vector arithmetic in the operation
-// order of the port's core/math.py, the scalar rules of PyTorch's CUDA
-// elementwise kernels, and the layout of ops/vertex.py's scene tables.
+// Shared by the path vertex kernels (vertex_hit.cu, free_flight.cu,
+// vertex_shade.cu, lane_update.cu, pool_refill.cu): 3-vector arithmetic
+// in the operation order of the port's core/math.py, the scalar rules of
+// PyTorch's CUDA elementwise kernels, and the layout of ops/vertex.py's
+// scene tables.
 //
 // Every source is compiled with -fmad=false, IEEE division and square
 // root: each expression below rounds where the plain PyTorch version's
@@ -108,15 +109,18 @@ enum Header {
     H_NPROXY,
     H_F_SPH, H_F_PLN, H_F_SUN, H_F_MAT, H_F_PROXY, H_F_CONST, H_F_NODE, H_F_BG,
     H_I_SPH, H_I_PLN, H_I_VOL, H_I_SKY, H_I_SUN, H_I_MAT, H_I_LIGHT, H_I_NODE,
+    H_F_VOL, H_I_VOLK,
     HEADER = 32
 };
 // row widths: sphere center(3) radius inv(9) fwd(9) | mat; plane corner
 // uhalf vhalf dual_u dual_v normal (3 each) area | backface mat; material
 // inv_ior ior | type albedo_tex rough_tex normal_tex; light | kind idx;
-// proxy sphere center radius; texture node scale | kind c0 c1 c2 a b c d
+// proxy sphere center radius; texture node scale | kind c0 c1 c2 a b c d;
+// volume center(3) axes(9) halfsize(3) neg_inv_density | kind, the offset
+// in ftab and the count of its mesh block's rows (v0 e1 e2, 9 floats each)
 enum Rows {
     SPH_F = 22, SPH_I = 1, PLN_F = 19, PLN_I = 2, SUN_F = 3, MAT_F = 2, MAT_I = 4,
-    LIGHT_I = 2, PROXY_F = 4, NODE_F = 1, NODE_I = 8, TRI_ATTR = 32
+    LIGHT_I = 2, PROXY_F = 4, NODE_F = 1, NODE_I = 8, TRI_ATTR = 32, VOL_F = 16, VOL_I = 3
 };
 // ops/texture.py node kinds, scene/pack.py ids
 enum TexKind { CONSTANT = 0, CHECKER, CHECKER_SOLID, IMAGE, LERP, NOISE_SOLID, CHANNEL,

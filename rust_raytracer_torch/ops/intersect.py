@@ -432,8 +432,9 @@ def merge_volumes(pack, org, dirn, t_min, rng_ctx, t_sph, i_sph, t_pln, i_pln, t
     volumes' free-flight samples (the part of `intersect` between the walk
     and the sun) -> (t, kind, prim).  `t_min` is a float or the (n,) lanes
     of it.  On the card the shading kernel (ops/vertex.py) runs this merge
-    itself in a scene without volumes; with volumes it takes this
-    function's result."""
+    itself in a scene without volumes; with volumes the free-flight kernel
+    (ops/vertex.py:free_flight) computes it, and this is its plain
+    version."""
     n = org.shape[0]
     if inf is None:
         inf = _full(n, float("inf"), org.dtype, org.device)

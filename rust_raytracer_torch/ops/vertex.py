@@ -1,10 +1,13 @@
-"""The path vertex as four CUDA kernels: the port of XLA's fusion of the
+"""The path vertex as CUDA kernels: the port of XLA's fusion of the
 reference's jitted step (its shading is elementwise work that
 rust_raytracer_tpu leaves to XLA outside any Pallas kernel), with the scene
 tables the kernels read.
 
   KV1 csrc/vertex_hit.cu     closest sphere and plane hit, the triangle
                              walk's t_max (0 on a dead lane)
+  KV-FF csrc/free_flight.cu  after the walk, in a scene with volumes only:
+                             the merge of the three hits, then each
+                             volume's free flight -> (t, kind, prim)
   KV2 csrc/vertex_shade.cu   after the walk: the merge with sun and sky,
                              the hit record, the texture program, the
                              7-way material, the normal map, the NEE
@@ -18,21 +21,22 @@ tables the kernels read.
 
 The plain version of each is the torch-ops code it replaces, which stays
 where it is: ops/intersect.py (intersect_spheres, intersect_planes,
-_intersect, hit_attributes), ops/texture.py, ops/shade.py, ops/lights.py,
-render/integrator.py (shade_hits, _advance, _compaction_key) and
-render/pool.py's step.  The callers there route each call (`use_kernels`):
+_intersect, merge_volumes, hit_attributes), ops/texture.py, ops/shade.py,
+ops/lights.py, render/integrator.py (shade_hits, _advance,
+_compaction_key) and render/pool.py's step.  The callers there route each call (`use_kernels`):
 CUDA tensors of a float32 pack with no input that requires grad take the
 kernel; the CPU, a float64 pack on the card and a call under autograd with
 grad-requiring inputs (the differentiable trace) take the plain version.
 A kernel that fails to build or launch raises; nothing falls back.
 
 `vertex_tables(pack, static)` packs the scene's static parts once into two
-flat device tables, f32 and i32, that KV2 interprets: a header of counts
-and offsets (csrc/vertex_common.cuh:Header), then the sphere, plane, sun,
-material, proxy-light, light, sky, volume rows, the texture program's
-nodes in topological order with their constants, and the image and Perlin
-data at offsets.  `tables` keeps them on the pack object, built outside
-any capture (render/pool.py:make_step and render/renderer.py:BatchProgram
+flat device tables, f32 and i32, that KV1, KV-FF and KV2 interpret: a
+header of counts and offsets (csrc/vertex_common.cuh:Header), then the
+sphere, plane, sun, material, proxy-light, light, sky, volume rows (with
+each convex mesh boundary's triangles), the texture program's nodes in
+topological order with their constants, and the image and Perlin data at
+offsets.  `tables` keeps them on the pack object, built outside any
+capture (render/pool.py:make_step and render/renderer.py:BatchProgram
 call `prepare`); `camera_table` does the same for KV4's camera constants.
 A texture program of more than MAX_NODES nodes raises ValueError when its
 tables are built.
@@ -42,20 +46,19 @@ routed to its plain version.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils import metrics as metricsmod
+from ..scene import pack as sp
 from . import _cuda
 from . import intersect as isect
 from . import texture as tex
 
 KERNELS = ("vertex_hit", "vertex_shade", "lane_update", "lane_bbox", "compaction_key",
-           "pool_refill")
+           "pool_refill", "free_flight")
 launches = dict.fromkeys(KERNELS, 0)
 plain_calls = dict.fromkeys(KERNELS, 0)
 
@@ -66,11 +69,12 @@ MAX_NODES = 32   # must match csrc/vertex_common.cuh:MAX_NODES
 # csrc/vertex_common.cuh:Header (keep in step)
 (H_NS, H_AFFINE, H_NP, H_NT, H_NVOL, H_NSKY, H_NSUN, H_NMAT, H_NLIGHT, H_NNODE, H_NPROXY,
  H_F_SPH, H_F_PLN, H_F_SUN, H_F_MAT, H_F_PROXY, H_F_CONST, H_F_NODE, H_F_BG,
- H_I_SPH, H_I_PLN, H_I_VOL, H_I_SKY, H_I_SUN, H_I_MAT, H_I_LIGHT, H_I_NODE) = range(27)
+ H_I_SPH, H_I_PLN, H_I_VOL, H_I_SKY, H_I_SUN, H_I_MAT, H_I_LIGHT, H_I_NODE,
+ H_F_VOL, H_I_VOLK) = range(29)
 HEADER = 32
 # csrc/vertex_common.cuh:Rows
 SPH_F, SPH_I, PLN_F, PLN_I, SUN_F, MAT_F, MAT_I = 22, 1, 19, 2, 3, 2, 4
-LIGHT_I, PROXY_F, NODE_F, NODE_I = 2, 4, 1, 8
+LIGHT_I, PROXY_F, NODE_F, NODE_I, VOL_F, VOL_I = 2, 4, 1, 8, 16, 3
 # csrc/pool_refill.cu:Cam
 CAMERA_FLOATS = 20
 
@@ -144,8 +148,22 @@ def table_arrays(pack, static):
                                   host(pack.pln_mat)], axis=1))
 
     h[H_NT] = pack.tri_attr.shape[0]
-    h[H_NVOL] = pack.vol_kind.shape[0]
+    nv = h[H_NVOL] = pack.vol_kind.shape[0]
     h[H_I_VOL] = b.ints(host(pack.vol_mat))
+    vol = np.zeros((nv, VOL_F), np.float32)
+    vol_i = np.zeros((nv, VOL_I), np.int64)
+    if nv:
+        vol[:, 0:3] = host(pack.vol_center)
+        vol[:, 3:12] = host(pack.vol_axes).reshape(nv, 9)
+        vol[:, 12:15] = host(pack.vol_halfsize)
+        vol[:, 15] = host(pack.vol_neg_inv_density)
+    for vi, (kind, count) in enumerate(zip(pack.vol_kinds, pack.vol_tri_counts)):
+        vol_i[vi, 0] = kind
+        if kind == sp.VOL_MESH:
+            block = np.concatenate([host(getattr(pack, f)[vi, :count])
+                                    for f in ("vol_tri_v0", "vol_tri_e1", "vol_tri_e2")], axis=1)
+            vol_i[vi, 1], vol_i[vi, 2] = b.floats(block), count
+    h[H_F_VOL], h[H_I_VOLK] = b.floats(vol), b.ints(vol_i)
     h[H_NSKY] = pack.sky_tex.shape[0]
     h[H_I_SKY] = b.ints(host(pack.sky_tex))
     h[H_NSUN] = pack.sun_dir.shape[0]
@@ -331,6 +349,46 @@ def analytic_hits(pack, static, org, dirn, t_min: float, alive=None):
     return out
 
 
+def _key_fields(ctx, n, who):
+    """(pixel, sample, bounce, bounce stride, bounce value, seed, seed value)
+    of the RNG key `ctx` for a kernel of `n` lanes: (n,) pixel and sample
+    ids, one bounce or one a lane, one seed; raise otherwise."""
+    pixel, _, _ = _key_value(ctx.pixel, n)
+    sample, _, _ = _key_value(ctx.sample, n)
+    if pixel is None or sample is None or pixel.shape != (n,) or sample.shape != (n,):
+        raise ValueError(f"the {who} kernel takes (n,) pixel and sample ids")
+    bounce, b_stride, b_val = _key_value(ctx.bounce, n)
+    seed, _, s_val = _key_value(ctx.seed, n)
+    if seed is not None and seed.numel() != 1:
+        raise ValueError(f"the {who} kernel takes one seed")
+    if bounce is not None and bounce.numel() not in (1, n):
+        raise ValueError(f"the {who} kernel takes one bounce or one a lane")
+    return pixel, sample, bounce, b_stride, b_val, seed, s_val
+
+
+def free_flight(pack, static, org, dirn, ctx, t_min: float, hits):
+    """KV-FF: (t, kind, prim) on the card, as ops/intersect.py:merge_volumes
+    returns them.  `hits` is (t_sph, i_sph, t_pln, i_pln, t_tri, i_tri), the
+    (n,) f32 / i32 hits of KV1 and the walk; `ctx` the lanes' RNG key (as
+    shade_hits takes it); `t_min` the T_MIN of the lanes."""
+    n, dev = org.shape[0], org.device
+    tb = tables(pack, static)
+    f32, i32 = torch.float32, torch.int32
+    if len(hits) != 6:
+        raise ValueError("the free-flight kernel takes six hit fields")
+    _check(dev, (org, f32, (n, 3)), (dirn, f32, (n, 3)),
+           *((x, f32 if k % 2 == 0 else i32, (n,)) for k, x in enumerate(hits)))
+    pixel, sample, bounce, b_stride, b_val, seed, s_val = _key_fields(ctx, n, "free-flight")
+    _check(dev, *((x, torch.int64, None) for x in (pixel, sample, bounce, seed)))
+    out = (torch.empty(n, dtype=f32, device=dev), torch.empty(n, dtype=i32, device=dev),
+           torch.empty(n, dtype=i32, device=dev))
+    if n:
+        _launch("rrt_free_flight", (tb.ftab, tb.itab, org, dirn, *hits, pixel, sample, bounce,
+                                    seed, *out), (n, b_stride, b_val, s_val), (t_min,), dev)
+        launches["free_flight"] += 1
+    return out
+
+
 def shade_hits(pack, static, org, dirn, ctx, light_bias: float, hits, merged=None,
                alive=None, volume_hits=None):
     """KV2: (emission, weight, new_dir, ended, pos) on the card.  `hits` is
@@ -350,16 +408,7 @@ def shade_hits(pack, static, org, dirn, ctx, light_bias: float, hits, merged=Non
         ins = (ts, i_s, tp, ip, tt, it, None)
     _check(dev, (org, f32, (n, 3)), (dirn, f32, (n, 3)), (pack.tri_attr, f32, None),
            *((x, f32 if k in (0, 2, 4) else torch.int32, (n,)) for k, x in enumerate(ins)))
-    pixel, _, _ = _key_value(ctx.pixel, n)
-    sample, _, _ = _key_value(ctx.sample, n)
-    if pixel is None or sample is None or pixel.shape != (n,) or sample.shape != (n,):
-        raise ValueError("the shading kernel takes (n,) pixel and sample ids")
-    bounce, b_stride, b_val = _key_value(ctx.bounce, n)
-    seed, _, s_val = _key_value(ctx.seed, n)
-    if seed is not None and seed.numel() != 1:
-        raise ValueError("the shading kernel takes one seed")
-    if bounce is not None and bounce.numel() not in (1, n):
-        raise ValueError("the shading kernel takes one bounce or one a lane")
+    pixel, sample, bounce, b_stride, b_val, seed, s_val = _key_fields(ctx, n, "shading")
     _check(dev, *((x, torch.int64, None) for x in (pixel, sample, bounce, seed)))
     alive = alive if volume_hits is not None else None
     _check(dev, (alive, torch.bool, (n,)), (volume_hits, torch.int64, (VOLUME_SLOTS,)))
@@ -475,10 +524,9 @@ def attributes():
 
 def fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel, t_min,
                  volume_hits=None):
-    """KV1 -> the triangle walk -> (the volumes' torch ops, span
-    `vertex.volumes` outside a capture) -> KV2: a path vertex on the card,
-    as render/integrator.py:shade_vertex returns it: (emission, weight,
-    new_dir, ended, pos, stats).  In a scene with volumes KV2 adds the
+    """KV1 -> the triangle walk -> (in a scene with volumes KV-FF) -> KV2: a
+    path vertex on the card, as render/integrator.py:shade_vertex returns
+    it: (emission, weight, new_dir, ended, pos, stats).  In a scene with volumes KV2 adds the
     `alive` lanes' scattering events to `volume_hits` (the pool step's
     counter, (VOLUME_SLOTS,) int64 read as its sum), one atomic a warp."""
     org, dirn = org.contiguous(), dirn.contiguous()
@@ -487,13 +535,8 @@ def fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel, t_min,
                                                              alive)
         t_tri, i_tri, stats = isect.intersect_triangles(pack, org, dirn, t_min, tri_tmax,
                                                         kernel=kernel, return_stats=True)
-        merged = None
-        if pack.vol_kinds:
-            with (contextlib.nullcontext() if torch.cuda.is_current_stream_capturing()
-                  else metricsmod.span("vertex.volumes")):
-                merged = isect.merge_volumes(pack, org, dirn, t_min, ctx, t_sph, i_sph, t_pln,
-                                             i_pln, t_tri, i_tri)
-        return (*shade_hits(pack, static, org, dirn, ctx, light_bias,
-                            (t_sph, i_sph, t_pln, i_pln, t_tri.contiguous(), i_tri.contiguous()),
-                            merged, alive, volume_hits), stats)
+        hits = (t_sph, i_sph, t_pln, i_pln, t_tri.contiguous(), i_tri.contiguous())
+        merged = free_flight(pack, static, org, dirn, ctx, t_min, hits) if pack.vol_kinds else None
+        return (*shade_hits(pack, static, org, dirn, ctx, light_bias, hits, merged, alive,
+                            volume_hits), stats)
 

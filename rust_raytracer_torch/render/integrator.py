@@ -129,15 +129,17 @@ def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
     (ops/vertex.py:VOLUME_SLOTS,) int64 counter read as its sum, if given
     in a scene with volumes, has the vertex's free-flight scattering
     events of the `alive` lanes added to it in place.  On the
-    card (ops/vertex.py:use_kernels) this is KV1, the walk and KV2
-    (ops/vertex.py:fused_vertex); its plain version, which the CPU runs,
-    is `intersect` and `shade_hits`.
+    card (ops/vertex.py:use_kernels) this is KV1, the walk, KV-FF (in a
+    scene with volumes) and KV2 (ops/vertex.py:fused_vertex); its plain
+    version, which the CPU runs, is `intersect` and `shade_hits`.
     """
     if vertex.use_kernels(pack, org, dirn):
         return vertex.fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel,
                                    T_MIN, volume_hits)
     vertex.plain_calls["vertex_hit"] += 1
     vertex.plain_calls["vertex_shade"] += 1
+    if pack.vol_kinds:
+        vertex.plain_calls["free_flight"] += 1
     hit, stats = isect.intersect(pack, org, dirn, T_MIN, ctx, alive=alive, kernel=kernel,
                                  return_stats=True)
     if volume_hits is not None and pack.vol_kinds:

@@ -520,8 +520,8 @@ def test_cpu_pool_step_equals_old_step(scenes, name):
         a, b = step(pack, a), old(b)
         assert_states_equal(a, b)
     assert "_vertex_tables" not in pack.__dict__  # the CPU route builds no table
-    assert {k: vertex.plain_calls[k] - before[k] for k in vertex.KERNELS} == dict.fromkeys(
-        vertex.KERNELS, 6)
+    assert {k: vertex.plain_calls[k] - before[k] for k in vertex.KERNELS} == {
+        **dict.fromkeys(vertex.KERNELS, 6), "free_flight": 6 if pack.vol_kinds else 0}
     assert vertex.launches == dict.fromkeys(vertex.KERNELS, 0)
 
 
@@ -588,6 +588,9 @@ def test_loader_error_propagates(scenes, monkeypatch, which):
         "vertex_hit": lambda: vertex.analytic_hits(pack, static, org, dirn, 1e-3, flag),
         "vertex_shade": lambda: vertex.shade_hits(
             pack, static, org, dirn, trng.Ctx(i64, i64, 0, 1), 0.25,
+            (torch.zeros(n), i64.int(), torch.zeros(n), i64.int(), torch.zeros(n), i64.int())),
+        "free_flight": lambda: vertex.free_flight(
+            pack, static, org, dirn, trng.Ctx(i64, i64, 0, 1), 1e-3,
             (torch.zeros(n), i64.int(), torch.zeros(n), i64.int(), torch.zeros(n), i64.int())),
         "lane_update": lambda: vertex.lane_update(org, dirn, org, org, flag, org, org, org,
                                                   flag, org, bounce=i64, max_depth=4),
