@@ -1694,8 +1694,9 @@ def cli_render(argv, spp, dev, card):
 def resume_check(pack, static, scene, dev, card, width=600):
     """The resumable pool on the card: 20 steps, a checkpoint at 2^18 lanes
     (its save time and size printed), 20 more steps straight on and 20
-    from the reloaded file: lane state equal bit for bit, accumulator
-    within float sum order.  Then a render resumed from the step-20 file
+    from the reloaded file (through a step of its own: a graphed step
+    donates its state): lane state equal bit for bit, accumulator within
+    float sum order.  Then a render resumed from the step-20 file
     to its end against a straight render: image within sum-order
     tolerance.  cornell_dragon at `width` (600) square, 4 spp, so a pixel
     sums several paths."""
@@ -1707,7 +1708,8 @@ def resume_check(pack, static, scene, dev, card, width=600):
     cam = camera_from_config(cfg.merge_scene_config(scene.config, {"output_width": width}),
                              cfg.RenderConfig(samples_per_pixel=4, max_depth=DEPTH))
     n_pixels, spp = cam.image_width * cam.image_height, cam.actual_spp
-    step = poolmod.make_step(pack, static, cam, n_pixels * spp, spp, 0)
+    step, step_b = (poolmod.make_step(pack, static, cam, n_pixels * spp, spp, 0)
+                    for _ in range(2))
     state = poolmod.init_state(LANES, n_pixels, dev)
     for _ in range(20):
         state = step(pack, state)
@@ -1728,7 +1730,7 @@ def resume_check(pack, static, scene, dev, card, width=600):
         raise AssertionError("the reloaded checkpoint differs from the saved state")
     a, b = state, loaded
     for _ in range(20):
-        a, b = step(pack, a), step(pack, b)
+        a, b = step(pack, a), step_b(pack, b)
     same = [f for f in lane if torch.equal(getattr(a, f), getattr(b, f))]
     d_acc = (a.accum - b.accum).abs().max().item()
     scale = a.accum.abs().max().item()
@@ -1957,8 +1959,8 @@ def mesh_phase(renderer, wf_renderer, b_renderer, camera, wf_overflow, dev, card
     # and warm
     base_step = make_step(None)
     base, base_m, base_s = pool_rate(pack, static, camera, dev, "auto", None, base_step)
-    base_warm = pool_rate(pack, static, camera, dev, "auto", None, base_step)[2]
     base_img = (base / SPP).reshape(camera.image_height, camera.image_width, 3).cpu().numpy()
+    base_warm = pool_rate(pack, static, camera, dev, "auto", None, base_step)[2]
     warm = {}
     for tag, mesh in (("make_mesh(1)", one), ("2 shards on one card", two)):
         step = make_step(mesh)
@@ -2247,10 +2249,10 @@ def lane_state_parity(r, kernel, camera, dev, card, names, steps=20, mesh=None):
     turns, `steps` each: every lane field bit-equal, the accumulator within
     float order (index_add on the card sums in no fixed order), and the
     graphed steps' launches of each traversal kernel in `names` equal to
-    the steps (times the shards).  With `mesh`, the sharded steps from each
-    shard's state on its device, held shard for shard; each shard's graphed
-    step donates its state (the same buffers every step).  Returns the
-    accumulator's max |d|."""
+    the steps (times the shards), and each shard's graphed step donating
+    its state (the same buffers every step).  With `mesh`, the sharded
+    steps from each shard's state on its device, held shard for shard.
+    Returns the accumulator's max |d|."""
     from rust_raytracer_torch.render import graphs
     from rust_raytracer_torch.render import pool as poolmod
 
@@ -2269,11 +2271,10 @@ def lane_state_parity(r, kernel, camera, dev, card, names, steps=20, mesh=None):
         before = graphs.launch_counts()
         g = graphed(r.pack, g)
         launched.update({k: v - before[k] for k, v in graphs.launch_counts().items()})
-        if mesh is not None:
-            held = held or [s.org for s in g]
-            if any(s.org is not h for s, h in zip(g, held)):
-                raise AssertionError("a graphed shard step returned new tensors, not its "
-                                     "buffers")
+        held = held or [s.org for s in poolmod.shards(g)]
+        if any(s.org is not h for s, h in zip(poolmod.shards(g), held)):
+            raise AssertionError("a graphed shard step returned new tensors, not its "
+                                 "buffers")
     torch.cuda.synchronize()
     lane = ("org", "dirn", "throughput", "radiance", "pixel", "sample", "bounce", "active",
             "next_flat", "overflow")
@@ -2283,7 +2284,7 @@ def lane_state_parity(r, kernel, camera, dev, card, names, steps=20, mesh=None):
     d_acc = max(float((a.accum - b.accum).abs().max()) for a, b in pairs)
     scale = max(float(a.accum.abs().max()) for a, _ in pairs)
     launched = {k: v for k, v in launched.items() if v}
-    caps = [graphed] if mesh is None else graphed.shard_steps
+    caps = graphed.shard_steps
     capture_s = sum(the_capture(c).seconds for c in caps)
     tag = kernel if mesh is None else f"{kernel}, {mesh.n_shards} shards"
     log(f"graph lane state, {tag}: {steps} eager and {steps} graphed steps in turns from "
@@ -2332,7 +2333,7 @@ def graph_render_pair(r, kernel, camera, dev, card, names):
         runs.append((mode, secs, m.steps, peak, launched, accum))
         if launched != {nm: m.steps for nm in names + VERTEX_POOL}:
             raise AssertionError(f"{mode} {kernel} render: launches {launched}, {m.steps} steps")
-    cap = the_capture(steps["graphed"])
+    cap = the_capture(steps["graphed"].shard_steps[0])
     nodes = graph_nodes(cap.graph)
     h = camera.image_height
     imgs = {mode: (a / SPP).reshape(h, W, 3).cpu().numpy() for mode, *_, a in runs}

@@ -138,13 +138,11 @@ def render_pool_resumable(pack, static, camera, n_pixels: int, spp: int,
                 f"checkpoint {checkpoint_path} was written with different "
                 f"render parameters (seed/spp/pixels/camera/depth); refusing "
                 f"to resume into an inconsistent state")
-        lanes = sum(s.org.shape[0] for s in state) if mesh is not None else state.org.shape[0]
+        lanes = sum(s.org.shape[0] for s in poolmod.shards(state))
         if lanes != n_lanes:
             raise ValueError(f"checkpoint lane count {lanes} != {n_lanes}")
-    elif mesh is not None:
-        state = poolmod.init_shards(n_lanes, n_pixels, mesh, dtype)
     else:
-        state = poolmod.init_state(n_lanes, n_pixels, device, dtype)
+        state = poolmod.init_pool(n_lanes, n_pixels, device, dtype, mesh)
     step = poolmod.make_step(pack, static, camera, total, spp, seed, kernel=kernel, mesh=mesh)
     since = 0
 

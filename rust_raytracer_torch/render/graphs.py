@@ -35,9 +35,9 @@ a walk that launches a traversal kernel (`applies`).  The "jnp" walk
 run eagerly; so does a step under metrics.debug_nans, whose check reads
 the outputs back, and everything while RRT_WF_CHECK asks the wavefront
 walk to print its overflow.  Around the graphs, the host still runs the
-pool's poll reads (one a device with a mesh; a sharded pool step is one
-replay a shard and nothing else), the batch render's one wait a batch,
-and train_step_fn's copies and cross-shard sums.  `integrator.trace`
+pool's poll reads (one a device; a pool step is one replay a shard and
+nothing else), the batch render's one wait a batch, and train_step_fn's
+copies and cross-shard sums.  `integrator.trace`
 (non-differentiable, with its one `alive.any()` read a bounce) always runs
 eagerly: it is the batch program's plain version.  A capture or replay
 that fails raises; nothing carries on eagerly.
@@ -135,17 +135,19 @@ def same_pack(a, b) -> bool:
 
 
 class GraphedStep:
-    """`step(pack, state) -> state` of `fn`, replayed as a CUDA graph.
+    """`step(pack, state) -> state` of `fn`, replayed as a CUDA graph, with
+    its state donated as the reference's jitted step donates it.
 
     `fn(pack, state)` is a pure function of a scene pack and a NamedTuple
     of tensors that returns the next state of the same layout.  The graph
     reads the state from static buffers and writes the next state back
-    into them, standing in for the reference's donated state: a replay
-    chains onto the last one.  The step returns clones of the buffers, so
-    a returned state stays valid after later calls; a state other than the
-    one it last returned (or one changed in place since) is copied into the
-    buffers first, so two chains stepped in turn get what the eager step
-    gives them.
+    into them, and the step returns the buffers themselves: a replay
+    chains onto the last one, a step issues the replay and nothing else,
+    and the state it returned last is overwritten by its next call.  So a
+    step holds one chain.  A state other than the one it returned last is
+    copied into the buffers first (that one, changed in place or not, is
+    read where it is); a chain that must outlive another chain's steps
+    takes a step of its own.
 
     One capture per device and state layout, for the last pack seen there:
     another pack (ScenePack.with_grad, a replica on another device, a new
@@ -160,24 +162,16 @@ class GraphedStep:
     back, so a step is counted once.  Under metrics.debug_nans the step
     runs `fn` eagerly.
 
-    With `donate`, the step returns the buffers themselves, as the
-    reference's donated state: a step issues the replay and nothing else,
-    and the state it returned last is overwritten by its next call.  Such
-    a step holds one chain; a state other than the one it returned last is
-    copied in as above, over that one.
-
     `capture(body, device)` returns the graph of `body` (default
     `cuda_capture`); a test may stand in for it.
     """
 
     def __init__(self, fn: Callable, capture: Optional[Callable] = None,
-                 donate: bool = False, counters: tuple = ()):
+                 counters: tuple = ()):
         self.fn = fn
         self._capture = capture
-        self.donate = donate
         self.counters = counters
         self.captures: Dict[torch.device, Capture] = {}
-        self._last = ()
 
     def __call__(self, pack, state):
         if metricsmod.nan_checks():
@@ -190,22 +184,13 @@ class GraphedStep:
             cap = self.captures[dev] = None   # free the old graph first
             cap = self.captures[dev] = self._record(pack, state, key)
         with metricsmod.span("graphs.replay"):
-            if not fresh and not self._holds(state):
+            if not fresh and not _holds(cap, state):
                 for buf, t in zip(cap.inputs, state):
                     buf.copy_(t)
             counts = launch_counts()
             cap.graph.replay()
             _set_launches({k: n + cap.launched.get(k, 0) for k, n in counts.items()})
-            out = (cap.inputs if self.donate
-                   else type(state)(*(buf.clone() for buf in cap.inputs)))
-        self._last = tuple((weakref.ref(t), t._version) for t in out)
-        return out
-
-    def _holds(self, state) -> bool:
-        """Whether `state` is the one last returned, unchanged: its values
-        are then in the buffers already."""
-        return len(self._last) == len(state) and all(
-            ref() is t and t._version == v for (ref, v), t in zip(self._last, state))
+        return cap.inputs
 
     def _record(self, pack, state, key) -> Capture:
         t0 = time.perf_counter()
@@ -225,8 +210,13 @@ class GraphedStep:
 
         with metricsmod.timed("graphs.capture"), torch.no_grad():
             graph, launched = _warm_and_capture(warm, body, dev, self._capture)
-        self._last = ()
         return Capture(pack, key, inputs, graph, launched, time.perf_counter() - t0)
+
+
+def _holds(cap: Capture, state) -> bool:
+    """Whether `state` is `cap`'s buffers, as its step returned them: their
+    values, changed in place since or not, are where the graph reads."""
+    return len(state) == len(cap.inputs) and all(t is b for t, b in zip(state, cap.inputs))
 
 
 def _warm_and_capture(warm: Callable[[], None], body: Callable[[], None], dev,

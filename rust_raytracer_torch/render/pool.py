@@ -32,11 +32,12 @@ image is the planes' sum in shard order (`sum_planes`), and a checkpoint
 or a check reads the stacked layout (`join_field`: the reference's shard
 axis, `accum` (n_shards, n_pixels, 3), `next_flat` and `overflow`
 (n_shards,)), so a checkpoint is interchangeable with the reference's.
-Each shard compaction-sorts only its own lanes.  Without a mesh the state
-is one PoolState with no shard axis and the step is the one-device step.
+Each shard compaction-sorts only its own lanes.  Without a mesh the pool
+is the one-shard case of the same code, its state one PoolState with no
+shard axis (the reference's one-device layout).
 
-`poll_loop` is the host loop that run_pool (render_pool's, and the
-Renderer's) and render/checkpoint.py:render_pool_resumable share.
+`init_pool` and `poll_loop` are the set-up and the host loop that run_pool
+and render/checkpoint.py:render_pool_resumable share.
 """
 from __future__ import annotations
 
@@ -140,6 +141,25 @@ def init_shards(n_lanes: int, n_pixels: int, mesh: pmesh.Mesh,
     return ShardedState(init_state(per, n_pixels, dev, dtype) for dev in mesh.devices)
 
 
+def init_pool(n_lanes: int, n_pixels: int, device, dtype=torch.float32,
+              mesh: Optional[pmesh.Mesh] = None):
+    """The empty pool of a render (span `pool.init`): `init_state` on
+    `device`, or with `mesh` `init_shards` (n_lanes a multiple of its
+    shard count)."""
+    n_shards = 1 if mesh is None else mesh.n_shards
+    if n_lanes % n_shards:
+        raise ValueError(f"n_lanes {n_lanes} not divisible by {n_shards} shards")
+    with metricsmod.span("pool.init"):
+        if mesh is None:
+            return init_state(n_lanes, n_pixels, device, dtype)
+        return init_shards(n_lanes, n_pixels, mesh, dtype)
+
+
+def shards(state) -> tuple:
+    """A ShardedState's shards; a PoolState is one shard."""
+    return state if isinstance(state, ShardedState) else (state,)
+
+
 def _shard_quota(shard: int, n_shards: int, total: int):
     """Contiguous balanced partition of [0, total): shard s owns
     [start, start + quota) (the reference's _shard_quota)."""
@@ -155,23 +175,23 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
     flat // spp) so consecutive refills share pixels.  `kernel` is the
     triangle traversal (ops/intersect.py KERNELS).
 
-    On a CUDA device (where graphs.applies) the step is a
-    graphs.GraphedStep: captured at its first call, then one graph replay
-    a step.  graph=False keeps it eager there too, as on the CPU: the
-    reference the graphed step is held against.
+    The step runs one local step a shard (`step.shard_steps`), each
+    issuing from its own slice of the job grid.  Without a mesh the one
+    shard is the whole grid on the pack's device and the step maps a
+    PoolState to the next one; with `mesh`, shard i (global shard
+    mesh.first + i) steps its own state on its device and the step maps a
+    ShardedState of this process's shards to the next one, joining and
+    copying nothing.  A stacked state (init_state with n_shards, a loaded
+    checkpoint) is placed once (`place_state`) at the step that receives
+    it.
 
-    With `mesh`, the step maps a ShardedState of this process's shards to
-    the next one: shard i (global shard mesh.first + i) steps its own state
-    on its device, issuing from its own job-grid slice, and nothing is
-    joined or copied between shards.  On the card each shard's step is one
-    replay of its own graph, which reads and writes its state's buffers in
-    place (GraphedStep with donate: the state a step returned is
-    overwritten by the next call, so a chain needs a step of its own), and
-    the replays are issued one after another with no host wait: on
-    distinct cards they run at the same time.  A stacked state
-    (init_state with n_shards, a loaded checkpoint) is placed once
-    (`place_state`) at the step that receives it.  `step.shard_steps`
-    holds the shards' own steps, in order.
+    On a CUDA device (where graphs.applies) each local step is a
+    graphs.GraphedStep: one graph replay a step, which reads and writes its
+    state's buffers in place (the state a step returned is overwritten by
+    its next call: a chain needs a step of its own).  The shards' replays
+    are issued with no host wait between them.  graph=False keeps the steps
+    eager there too, as on the CPU: the reference the graphed step is held
+    against.
 
     `step.volume_counters` holds each shard's free-flight counter: a
     (vertex.VOLUME_SLOTS,) int64 tensor on its device, read as its sum,
@@ -181,35 +201,35 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
     without volumes leaves it alone.  `run_pool` zeroes it at a render's
     start and reads it at its end."""
     total = int(total)
-    counters = []
-
-    def local(dev, job_base, quota, donate=False):
+    if mesh is None:
+        parts = [(pack.device, 0, total)]
+    else:
+        parts = [(dev, *_shard_quota(mesh.first + i, mesh.n_shards, total))
+                 for i, dev in enumerate(mesh.devices)]
+    replica = pmesh.replicas(pack)
+    local_steps, counters = [], []
+    for dev, job_base, quota in parts:
+        vertex.prepare(replica(dev), static, camera)
         fn = _local_step(static, camera, spp, seed, kernel, job_base, quota, dev)
         counters.append(fn.volume_hits)
         if graph and graphs.applies(dev, kernel, pack):
-            return graphs.GraphedStep(fn, donate=donate,
-                                      counters=(fn.volume_hits,) if pack.vol_kinds else ())
-        return fn
+            fn = graphs.GraphedStep(fn, counters=(fn.volume_hits,) if pack.vol_kinds else ())
+        local_steps.append(fn)
 
     if mesh is None:
-        vertex.prepare(pack, static, camera)
-        step = local(pack.device, 0, total)
-        step.volume_counters = tuple(counters)
-        return step
-    shards = [(dev, local(dev, *_shard_quota(mesh.first + i, mesh.n_shards, total),
-                          donate=True))
-              for i, dev in enumerate(mesh.devices)]
-    replica = pmesh.replicas(pack)
-    for dev in mesh.devices:
-        vertex.prepare(replica(dev), static, camera)
+        # a closure, not the local step itself: `step.shard_steps` then
+        # holds no cycle that would keep a dropped step's graph alive
+        def step(pack_, s: PoolState) -> PoolState:
+            return local_steps[0](pack_, s)
+    else:
+        def step(pack_, s: ShardedState) -> ShardedState:
+            if not isinstance(s, ShardedState):
+                s = place_state(s, mesh)
+            return ShardedState(local(replica(dev) if pack_ is pack else pack_.to(dev), part)
+                                for (dev, _, _), local, part in zip(parts, local_steps, s,
+                                                                    strict=True))
 
-    def step(pack_, s: ShardedState) -> ShardedState:
-        if not isinstance(s, ShardedState):
-            s = place_state(s, mesh)
-        return ShardedState(local(replica(dev) if pack_ is pack else pack_.to(dev), part)
-                            for (dev, local), part in zip(shards, s, strict=True))
-
-    step.shard_steps = tuple(local for _, local in shards)
+    step.shard_steps = tuple(local_steps)
     step.volume_counters = tuple(counters)
     return step
 
@@ -352,39 +372,38 @@ def max_pool_steps(total: int, n_lanes: int, max_depth: int, n_shards: int = 1) 
     return (total * max_depth) // n_lanes + 2 * max_depth * n_shards
 
 
-def host_sums(mesh: Optional[pmesh.Mesh], *tensors):
-    """The sums of `tensors` (e.g. a state's next_flat and active) as host
-    ints, all-reduced over the mesh's processes, so every process reads the
-    same numbers."""
-    sums = [t if t.ndim == 0 else t.sum() for t in tensors]
-    if mesh is None or not mesh.multiprocess:
-        return tuple(int(x) for x in sums)
-    return tuple(int(x) for x in pmesh.all_reduce_sum(mesh, torch.stack(sums)).tolist())
-
-
-def shard_sums(mesh: Optional[pmesh.Mesh], state: ShardedState, fields) -> tuple:
-    """The sums of the named `fields` over the shards of `state`, as host
-    ints: one small read a device (the shards of a device summed there
-    first), all-reduced over the mesh's processes as host_sums."""
-    by_dev = {}
-    for s in state:
-        v = torch.stack([getattr(s, f).sum() for f in fields])
-        dev = s.org.device
-        by_dev[dev] = v if dev not in by_dev else by_dev[dev] + v
-    sums = [sum(col) for col in zip(*(v.tolist() for v in by_dev.values()))]
+def _process_sums(mesh: Optional[pmesh.Mesh], sums) -> tuple:
+    """Host ints `sums` summed over the mesh's processes (as they are
+    without a mesh or in one process), so every process reads the same."""
     if mesh is None or not mesh.multiprocess:
         return tuple(sums)
     return tuple(int(x) for x in pmesh.all_reduce_sum(mesh, torch.tensor(sums)).tolist())
 
 
+def host_sums(mesh: Optional[pmesh.Mesh], *tensors):
+    """The sums of `tensors` as host ints, all-reduced over the mesh's
+    processes.  Nothing calls it; perfbench/core/spans.py wraps it by name."""
+    return _process_sums(mesh, [int(t.sum()) for t in tensors])
+
+
+def shard_sums(mesh: Optional[pmesh.Mesh], state, fields) -> tuple:
+    """The sums of the named `fields` over the shards of `state` (a
+    ShardedState, or a PoolState as one shard), as host ints: one small
+    read a device (the shards of a device summed there first), all-reduced
+    over the mesh's processes."""
+    by_dev = {}
+    for s in shards(state):
+        v = torch.stack([getattr(s, f).sum() for f in fields])
+        dev = s.org.device
+        by_dev[dev] = v if dev not in by_dev else by_dev[dev] + v
+    cols = zip(*(v.tolist() for v in by_dev.values()))
+    return _process_sums(mesh, [sum(col) for col in cols])
+
+
 def volume_scatters(mesh: Optional[pmesh.Mesh], counters) -> int:
-    """The sum of the free-flight `counters` (make_step's
-    `volume_counters`) over this process's shards and the mesh's
-    processes, a host int: one small read a shard."""
-    total = sum(int(c.sum()) for c in counters)
-    if mesh is None or not mesh.multiprocess:
-        return total
-    return int(pmesh.all_reduce_sum(mesh, torch.tensor([total]))[0])
+    """The sum of make_step's free-flight `counters` over this process's
+    shards and the mesh's processes, a host int: one small read a shard."""
+    return _process_sums(mesh, [sum(int(c.sum()) for c in counters)])[0]
 
 
 def sum_planes(mesh: pmesh.Mesh, state: ShardedState, device) -> torch.Tensor:
@@ -398,7 +417,7 @@ def sum_planes(mesh: pmesh.Mesh, state: ShardedState, device) -> torch.Tensor:
         return pmesh.all_reduce_sum(mesh, image)
 
 
-# what a poll of a sharded state reads, in one read a device
+# what a poll reads, in one read a device
 POLL_FIELDS = ("next_flat", "active", "overflow")
 
 
@@ -406,12 +425,11 @@ def poll_loop(pack, step, state, total: int, max_steps: int,
               steps_per_poll: int = STEPS_PER_POLL, done_steps: int = 0,
               on_poll: Optional[Callable] = None, mesh: Optional[pmesh.Mesh] = None):
     """Run `step` steps_per_poll at a time until every job is issued and no
-    lane is active (one host read a poll: `host_sums`, or `shard_sums` of a
-    ShardedState), or max_steps.  `on_poll(state, done_steps, issued,
-    n_active, overflow)` is called after each poll; `overflow`, the
-    wavefront overflow packets, was read with the counts of a ShardedState
-    and is None otherwise.  With a mesh across processes the counts are the
-    global ones, so every process stops at the same poll.  Returns (state,
+    lane is active, or max_steps: a poll reads POLL_FIELDS in one host read
+    a device (`shard_sums`).  `on_poll(state, done_steps, issued, n_active,
+    overflow)` is called after each poll (`overflow`: the wavefront
+    overflow packets so far).  With a mesh across processes the counts are
+    the global ones, so every process stops at the same poll.  Returns (state,
     done_steps).  The loop is span `pool.loop`, each poll's read and
     on_poll span `pool.poll` (utils/metrics.py:span)."""
     with metricsmod.span("pool.loop"):
@@ -420,11 +438,7 @@ def poll_loop(pack, step, state, total: int, max_steps: int,
                 state = step(pack, state)
             done_steps += steps_per_poll
             with metricsmod.span("pool.poll"):
-                if isinstance(state, ShardedState):
-                    issued, n_active, overflow = shard_sums(mesh, state, POLL_FIELDS)
-                else:
-                    (issued, n_active), overflow = (
-                        host_sums(mesh, state.next_flat, state.active), None)
+                issued, n_active, overflow = shard_sums(mesh, state, POLL_FIELDS)
                 if on_poll is not None:
                     on_poll(state, done_steps, issued, n_active, overflow)
             if issued >= total and n_active == 0:
@@ -457,8 +471,8 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
              kernel: str = "auto", dtype=torch.float32,
              mesh: Optional[pmesh.Mesh] = None, step: Optional[Callable] = None):
     """Run n_pixels * spp samples through a pool of n_lanes on `device`
-    until every job is done; returns the final state (span `pool.init`
-    around its making, then `poll_loop`).
+    until every job is done; returns the final state (`init_pool`, then
+    `poll_loop`).
 
     `metrics`, a utils/metrics.RenderMetrics, records at each poll the
     steps, the live lanes, the jobs issued and the wavefront overflow
@@ -467,20 +481,13 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     events (`volume_hits`: the step's counters, zeroed here and read once
     the loop has ended).  With `mesh`, n_lanes (a multiple of the shard
     count) is the global pool, of which this process holds its shards'
-    share, each shard's state on its device (`init_shards`), and the
-    state returned is a ShardedState.  `step`, if given, is the make_step of these
-    arguments, built before (a Renderer keeps its step, and with it the
-    graphs it captured).
-    """
+    share, each shard's state on its device (`init_pool`), and the state
+    returned is a ShardedState.  `step`, if given, is the make_step of
+    these arguments, built before (a Renderer keeps its step, and with it
+    the graphs it captured)."""
     total = n_pixels * spp
     n_shards = 1 if mesh is None else mesh.n_shards
-    if n_lanes % n_shards:
-        raise ValueError(f"n_lanes {n_lanes} not divisible by {n_shards} shards")
-    with metricsmod.span("pool.init"):
-        if mesh is None:
-            state = init_state(n_lanes, n_pixels, device, dtype)
-        else:
-            state = init_shards(n_lanes, n_pixels, mesh, dtype)
+    state = init_pool(n_lanes, n_pixels, device, dtype, mesh)
     if step is None:
         step = make_step(pack, static, camera, total, spp, seed, kernel=kernel, mesh=mesh)
     counters = (getattr(step, "volume_counters", ())
@@ -493,8 +500,7 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
             # poll-granular: one sample covering STEPS_PER_POLL steps at
             # the end-of-poll occupancy
             metrics.record_step(n_active, n_lanes, issued, weight=STEPS_PER_POLL)
-            metrics.wf_overflow_packets = (host_sums(mesh, state.overflow)[0]
-                                           if overflow is None else overflow)
+            metrics.wf_overflow_packets = overflow
             metrics.wf_total_packets = (n_lanes // 8) * done_steps
 
     state, _ = poll_loop(pack, step, state, total,

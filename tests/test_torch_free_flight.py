@@ -42,6 +42,15 @@ F32 = np.float32
 SEED = 2 ** 31 + 17   # above 2^31: the key is taken modulo 2^32
 
 
+@pytest.fixture(autouse=True)
+def own_counters(monkeypatch):
+    """ops/vertex.py's launch and plain-call counters, which these tests
+    advance through stand-in launches, restored after each test: a later
+    test of the process reads them from where it found them."""
+    monkeypatch.setattr(vertex, "launches", dict(vertex.launches))
+    monkeypatch.setattr(vertex, "plain_calls", dict(vertex.plain_calls))
+
+
 def _compiled(name, dtype=torch.float32):
     make = {"fog": fog_scene, "mini_dragon": mini_dragon_scene, **SCENES}[name]
     return tcompiler.compile_scene(make(tg), "cpu", dtype=dtype)

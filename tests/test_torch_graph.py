@@ -9,9 +9,10 @@ whether the graph is right on the card:
   (a kernel launch on the card, a plain walk here) left out;
 - the static-buffer bookkeeping: GraphedStep with the capture replaced by
   a direct call of the captured body equals the eager step bit for bit,
-  for one chain and for two chains stepped in turn, captures again when
-  the pack, seed, spp or lane count changes, and advances the launch
-  counters by what a replay launches;
+  returning its donated buffers, for one chain and for two chains stepped
+  in turn through a step each, captures again when the pack, seed, spp or
+  lane count changes, and advances the launch counters by what a replay
+  launches;
 - the graphed step's state against the JAX package's make_step after 12
   steps, at test_torch_render.py::test_pool_steps_match_jax's tolerance
   (rtol 1e-4, atol 2e-5 of a column's scale) on every lane but the few
@@ -224,44 +225,45 @@ def assert_states_equal(got, want, tag):
 @pytest.mark.parametrize("kernel", ["bvh8", "wavefront"])
 def test_graphed_pool_step_equals_eager(built, monkeypatch, kernel):
     """Over 12 steps the static-buffer step equals the eager step bit for
-    bit: one chain, then two chains stepped in turn, every returned state
-    still equal to the eager one after later steps, and a state changed in
-    place copied in again.  One capture for all of it, and the launch
-    counter advances by one a replay (the warm-up and the capture add
-    none)."""
+    bit, and returns its buffers (the same tensors every step: the state is
+    donated).  A second chain, stepped in turn with the first, gets a step
+    of its own and both equal the eager chains.  A state the step did not
+    return is copied in; the one it returned, changed in place, is read
+    as changed.  One capture a step for all of it, and the launch counter
+    advances by one a replay (the warm-up and the capture add none)."""
     _, pack, static, cam = built["mini_dragon"]
     counted(monkeypatch, tbvh8, "intersect_triangles_bvh8")
     n_pixels = cam.image_width * cam.image_height
     total = n_pixels * SPP
     eager = tpool.make_step(pack, static, cam, total, SPP, 0, kernel=kernel, graph=False)
-    capture = DirectCapture()
-    graphed = tgraphs.GraphedStep(eager, capture=capture)
+    captures = DirectCapture(), DirectCapture()
+    graphed, graphed_b = (tgraphs.GraphedStep(eager, capture=c) for c in captures)
     start = tpool.init_state(LANES, n_pixels, "cpu")
     wants = [start]
     for _ in range(12):
         wants.append(eager(pack, wants[-1]))
     tbvh8.launches = 0
-    a, kept = start, []
+    a = start
     for k in range(12):
         a = graphed(pack, a)
         assert_states_equal(a, wants[k + 1], f"step {k}")
-        kept.append((a, wants[k + 1]))
+        assert all(x is y for x, y in zip(a, graphed.captures[torch.device("cpu")].inputs))
     assert tbvh8.launches == (12 if kernel == "bvh8" else 0)
-    for k, (got, w) in enumerate(kept):
-        assert_states_equal(got, w, f"kept step {k}")
 
-    # two chains in turn: a from the start, b from where a stopped
-    a, b, wa, wb = start, kept[-1][0], start, kept[-1][1]
+    # two chains in turn, one step each: b from where a stopped, a anew
+    # from the start (a state the step did not return, copied in)
+    b, wb = graphed_b(pack, a), eager(pack, wants[-1])
+    a, wa = start, start
     for k in range(12):
-        a, b = graphed(pack, a), graphed(pack, b)
+        a, b = graphed(pack, a), graphed_b(pack, b)
         wa, wb = eager(pack, wa), eager(pack, wb)
         assert_states_equal(a, wa, f"chain a, step {k}")
         assert_states_equal(b, wb, f"chain b, step {k}")
-    # the last state returned, changed in place, is copied in again
+    # the last state returned, changed in place, is read as changed
     b.throughput.mul_(0.5)
     wb = wb._replace(throughput=wb.throughput * 0.5)
-    assert_states_equal(graphed(pack, b), eager(pack, wb), "changed in place")
-    assert capture.count == 1
+    assert_states_equal(graphed_b(pack, b), eager(pack, wb), "changed in place")
+    assert [c.count for c in captures] == [1, 1]
 
 
 def test_graph_follows_pack_and_lanes(built):

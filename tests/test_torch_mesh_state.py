@@ -8,8 +8,9 @@ donated shard_map step (rust_raytracer_tpu/render/pool.py:278-323).
   and its planes shard for shard against the JAX package's sharded step
   (test_pool_8_shards_against_jax's);
 - no join between polls: the joins are named functions of render/pool.py,
-  counted here (none in a step, one count read a poll, one plane sum at
-  the end), and a step dispatches exactly its shards' own step ops;
+  counted here (none in a step, one count read a poll, with a mesh or
+  without, one plane sum at the end), and a step dispatches exactly its
+  shards' own step ops;
 - the graphed sharded step (the capture replaced by a direct call of the
   captured body) against the eager one, shard for shard, its state the
   donated buffers, nothing dispatched outside its replays;
@@ -159,13 +160,19 @@ def test_sharded_state_against_jax_shard_for_shard(scene, n):
                                    err_msg=f"shard {i}")
 
 
-@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("n", [None, 2, 8])
 def test_no_join_between_polls(scene, monkeypatch, n):
-    """A sharded render joins only where the reference joins: no join in a
-    step, one count read a poll (shard_sums, the overflow with it; host_sums
-    never), one plane sum at the end, and no placement of a state."""
+    """A render joins only where the reference joins: no join in a step, one
+    count read a poll (shard_sums, the overflow with it; host_sums never),
+    no placement of a state, and on a mesh one plane sum at the end.  n
+    None is the pool without a mesh, the one-shard case of the same
+    poll."""
     pack, static, cam, n_pixels = scene
-    mesh, step = _step(scene, n)
+    if n is None:
+        mesh = None
+        step = tpool.make_step(pack, static, cam, n_pixels * SPP, SPP, SEED)
+    else:
+        mesh, step = _step(scene, n)
     calls = _count_joins(monkeypatch)
     in_steps = []
 
@@ -180,7 +187,7 @@ def test_no_join_between_polls(scene, monkeypatch, n):
                       metrics=m, step=watched)
     polls = m.steps // tpool.STEPS_PER_POLL
     assert len(in_steps) == m.steps > 0 and set(in_steps) == {0}
-    assert calls == {"shard_sums": polls, "sum_planes": 1}, calls
+    assert calls == {"shard_sums": polls, **({} if n is None else {"sum_planes": 1})}, calls
 
 
 class OpLog(TorchDispatchMode):

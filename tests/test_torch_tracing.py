@@ -11,7 +11,10 @@ of them (perfbench/metrics/*, perfbench/core/program_spans.py), on the CPU.
   process-wide totals.
 - RenderMetrics' rate is over the render's own seconds.
 - Each reader's arithmetic on a hand-built DeviceTrace.
+- Every program callable the benchmark wraps by name
+  (perfbench/core/spans.py) resolves, is wrapped and is restored.
 """
+import importlib
 import time
 import types
 
@@ -19,6 +22,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from perfbench.core import spans as pspans
 from perfbench.core import spec
 from perfbench.core.devtrace import DeviceTrace
 from rust_raytracer_torch import models as tmodels
@@ -123,6 +127,39 @@ def test_render_spans_nest(graphs_on_cpu, monkeypatch, shards):
     assert graphs_on_cpu.count == shards  # nothing captured again
     assert len(spy.calls) == len(events)
     assert {args for _, args in spy.calls} == {str(r.renders)} and r.renders == 2
+
+
+def span_target(module: str, attr: str):
+    """The (owner, name) that perfbench/core/spans.py sets for `attr`
+    (a module attribute or Class.method) of `module`."""
+    owner = importlib.import_module(module)
+    *cls, leaf = attr.split(".")
+    for c in cls:
+        owner = getattr(owner, c)
+    return owner, leaf
+
+
+def test_benchmark_span_wrappers_resolve(graphs_on_cpu):
+    """Every (module, attribute) of the benchmark's SPANS resolves; inside
+    layer_spans each is a wrapper of the program's own callable, and a
+    graphed pool render opens the poll's, the step's, the set-up's and
+    the image's spans (a poll a poll); on leaving, each is the program's
+    own again."""
+    own = [getattr(*span_target(m, a)) for m, a, _ in pspans.SPANS]
+    r = small_renderer()
+    r.render()
+    metrics = tmetrics.RenderMetrics()
+    with pspans.layer_spans():
+        for (module, attr, _), fn in zip(pspans.SPANS, own):
+            wrapped = getattr(*span_target(module, attr))
+            assert wrapped is not fn and wrapped.__wrapped__ is fn, attr
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            r.render(metrics=metrics)
+    names = [e.name for e in prof.events() if e.name.startswith("perfbench.")]
+    assert names.count("perfbench.pool.poll") == len(metrics.bounce_alive) > 0
+    assert names.count("perfbench.graphs.step") == metrics.steps
+    assert {"perfbench.pool.init", "perfbench.film.to_host"} <= set(names)
+    assert [getattr(*span_target(m, a)) for m, a, _ in pspans.SPANS] == own
 
 
 def test_grad_replay_span_and_unit(monkeypatch):
