@@ -401,13 +401,26 @@ def leaf_work(counts, n):
     order): leaf visits; the warp leaf passes a per-thread 128-slot leaf
     loop runs (iterations in which any lane of the warp holds a leaf) and
     the share of lanes busy in them; the warps' loop iterations; and the
-    warp-cooperative test's equivalent, leaf visits x 4 / 128 passes."""
+    warp-cooperative test's equivalent, leaf visits x 4 / 128 passes; with
+    the BVH8 walk's "groups", the groups of 32 slots tested, their share of
+    4 a visit and the bytes a visit reads (leaf_bytes)."""
     warps = -(-n // 32)
     lv, wp = counts["leaf_visits"], counts["warp_leaf_passes"]
-    return (f"leaf visits {lv}, warp leaf passes {wp} ({wp / warps:.2f} a warp), leaf "
-            f"efficiency {lv / max(32 * wp, 1):.1%}, loop iterations "
-            f"{counts['warp_steps'] / warps:.1f} a warp; cooperative leaf test "
-            f"{lv * 4 / 128:.1f} pass equivalents ({lv * 4 / 128 / warps:.2f} a warp)")
+    out = (f"leaf visits {lv}, warp leaf passes {wp} ({wp / warps:.2f} a warp), leaf "
+           f"efficiency {lv / max(32 * wp, 1):.1%}, loop iterations "
+           f"{counts['warp_steps'] / warps:.1f} a warp; cooperative leaf test "
+           f"{lv * 4 / 128:.1f} pass equivalents ({lv * 4 / 128 / warps:.2f} a warp)")
+    if "groups" in counts:
+        out += (f"; groups tested {counts['groups']} ({counts['groups'] / max(4 * lv, 1):.2%} "
+                f"of 4 a visit), bytes a leaf visit {leaf_bytes(counts):.0f} (128-slot scan "
+                f"{CLUSTER_BYTES})")
+    return out
+
+
+def leaf_bytes(counts):
+    """Bytes a leaf visit of the BVH8 walk reads, from bvh8_walk's counts:
+    the 96 bytes of group boxes and 32 rows of 48 bytes a group tested."""
+    return 96 + counts["groups"] * 32 * 48 / max(counts["leaf_visits"], 1)
 
 
 def make_rays(camera, n, device):
@@ -1182,13 +1195,15 @@ def bound(ops, nbytes):
 
 def bvh8_walk(pack, org, dirn, t_max):
     """The BVH8 kernel's walk in torch ops (csrc/bvh8_traverse.cu: a stack
-    per ray, children pushed 7 -> 0, near clamped at T_MIN), to count what
-    it does: returns (t, slot, counts) with internal-node visits (8 slab
-    tests each), leaf visits, distinct internal nodes and clusters, and for
-    warps of 32 lanes in ray order the loop iterations ("warp_steps": per
-    step, the warps with a lane still walking) and "warp_leaf_passes" (per
-    step, the warps with a lane at a leaf).  Its (t, slot) must equal the
-    kernel's, slots included."""
+    per ray, children pushed 7 -> 0, near clamped at T_MIN, a leaf's
+    groups of 32 slots tested where the ray enters their box,
+    ops/bvh8.py:leaf_test_plain), to count what it does: returns (t, slot,
+    counts) with internal-node visits (8 slab tests each), leaf visits,
+    the groups tested there ("groups"), distinct internal nodes and
+    clusters, and for warps of 32 lanes in ray order the loop iterations
+    ("warp_steps": per step, the warps with a lane still walking) and
+    "warp_leaf_passes" (per step, the warps with a lane at a leaf).  Its
+    (t, slot) must equal the kernel's, slots included."""
     from rust_raytracer_torch.ops import bvh8, threaded
 
     n, dev = org.shape[0], org.device
@@ -1198,11 +1213,9 @@ def bvh8_walk(pack, org, dirn, t_max):
     stack = torch.zeros((n, bvh8.STACK), dtype=torch.int64, device=dev)
     sp = torch.ones((n,), dtype=torch.int64, device=dev)
     box, child = pack.bvh8_box, pack.bvh8_child.to(torch.int64)
-    rows = pack.tri_rows.view(-1, 128, 12)
-    k_idx = torch.arange(128, device=dev)
     seen8 = torch.zeros((box.shape[0],), dtype=torch.bool, device=dev)
-    seen_cl = torch.zeros((rows.shape[0],), dtype=torch.bool, device=dev)
-    visits = leaves = warp_steps = leaf_passes = 0
+    seen_cl = torch.zeros((pack.tri_rows.shape[0] // 128,), dtype=torch.bool, device=dev)
+    visits = leaves = groups = warp_steps = leaf_passes = 0
     lanes = torch.arange(n, device=dev)
     t_min = torch.tensor(1e-3, device=dev)
     while lanes.numel():
@@ -1213,9 +1226,8 @@ def bvh8_walk(pack, org, dirn, t_max):
         warp_steps += int(threaded.warps_of(lanes))
         leaf_passes += int(threaded.warps_of(ln))
         if ln.numel():
-            tt = threaded.mt_rows(org[ln], dirn[ln], rows[cl], best[ln])
-            tmin = tt.min(dim=1).values
-            first = torch.where(tt == tmin[:, None], k_idx, 128).min(dim=1).values
+            tmin, first, tested = bvh8.leaf_test_plain(pack, org[ln], dirn[ln], best[ln], cl)
+            groups += int(tested.sum())
             better = tmin < best[ln]
             best[ln] = torch.where(better, tmin, best[ln])
             slot[ln] = torch.where(better, (cl * 128 + first).to(torch.int32), slot[ln])
@@ -1244,15 +1256,18 @@ def bvh8_walk(pack, org, dirn, t_max):
             visits += li.numel()
         lanes = lanes[sp[lanes] > 0]
     t = torch.where(slot < 0, t_max, best)
-    return t, slot, dict(node_visits=visits, leaf_visits=leaves, nodes=int(seen8.sum()),
+    return t, slot, dict(node_visits=visits, leaf_visits=leaves, groups=groups,
+                         nodes=int(seen8.sum()),
                          clusters=int(seen_cl.sum()), warp_steps=warp_steps,
                          warp_leaf_passes=leaf_passes)
 
 
 def bvh8_bound(pack, n, counts):
     """K1's bound from bvh8_walk's counts: 8 slab tests an internal node,
-    Möller–Trumbore of 128 slots a leaf; 224 bytes a node (8 boxes, 8 ids)."""
-    ops = counts["node_visits"] * 8 * SLAB_OPS + counts["leaf_visits"] * 128 * MT_OPS
+    4 slab tests a leaf and Möller–Trumbore of 32 slots a group tested;
+    224 bytes a node (8 boxes, 8 ids)."""
+    ops = (counts["node_visits"] * 8 * SLAB_OPS + counts["leaf_visits"] * 4 * SLAB_OPS
+           + counts["groups"] * 32 * MT_OPS)
     nbytes = (n * (RAY_BYTES + HIT_BYTES) + counts["nodes"] * 224
               + counts["clusters"] * CLUSTER_BYTES)
     return bound(ops, nbytes)
@@ -2956,15 +2971,22 @@ def main():
             f"{times[tag][1]:.3f} ms (CUDA events, mean of {KERNEL_REPS} / plain "
             f"{PLAIN_REPS} calls; {card})")
     # the BVH8 walk's own counts on the timed rays, for its bound; the
-    # counting walk in torch ops must give the kernel's (t, slot)
+    # counting walk in torch ops must give the kernel's (t, slot), and its
+    # leaf visits and groups tested the kernel's own counter
     k1_bounds = {}
     for tag, (o, d) in (("primary", (org, dirn)), ("bounce", (org2, dirn2))):
         t_w, i_w, k1_counts = bvh8_walk(pack, o, d, t_max)
+        kernel_counts = torch.zeros(2, dtype=torch.int64, device=dev)
         hold(f"BVH8 counting walk, {tag}", (t_w, i_w), bvh8.intersect_triangles_bvh8(
-            pack, o, d, None, t_max), t_max, exact_slots=True)
+            pack, o, d, None, t_max, kernel_counts), t_max, exact_slots=True)
+        walk_counts = [k1_counts["leaf_visits"], k1_counts["groups"]]
+        if kernel_counts.tolist() != walk_counts:
+            raise AssertionError(f"{tag}: K1's counter {kernel_counts.tolist()} != the walk's "
+                                 f"leaf visits and groups {walk_counts}")
         k1_bounds[tag] = b_ms, b_by = bvh8_bound(pack, LANES, k1_counts)
         log(f"BVH8 walk counts, {tag} rays x{LANES} (the torch-ops walk equals the kernel, "
-            f"slots included): internal node visits {k1_counts['node_visits']}, distinct "
+            f"slots included; its leaf visits and groups equal K1's counter): kernel "
+            f"{times[tag][0]:.3f} ms, internal node visits {k1_counts['node_visits']}, distinct "
             f"nodes {k1_counts['nodes']}, distinct clusters {k1_counts['clusters']}, "
             f"{leaf_work(k1_counts, LANES)}; bound {b_ms:.4f} ms by {b_by} "
             f"({b_ms / times[tag][0]:.2%} of the kernel's time)")

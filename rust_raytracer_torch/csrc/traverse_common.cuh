@@ -30,15 +30,12 @@ __device__ __forceinline__ float nan_max(float a, float b) {
     return (a > b || a != a) ? a : b;
 }
 
-// Möller–Trumbore of one ray against one triangle slot (`row`: three
-// float4, v0, e1, e2, hit_back, 0, 0).  Returns t where the slot is hit
-// with T_MIN < t < best, else +inf.
-__device__ __forceinline__ float mt_slot(const float4* __restrict__ row,
-                                         float ox, float oy, float oz,
-                                         float dx, float dy, float dz, float best) {
-    const float4 r0 = __ldg(row);
-    const float4 r1 = __ldg(row + 1);
-    const float4 r2 = __ldg(row + 2);
+// Möller–Trumbore of one ray against one triangle row, its three float4
+// r0, r1, r2 (v0, e1, e2, hit_back, 0, 0).  Returns t where the slot is
+// hit with T_MIN < t < best, else +inf.
+__device__ __forceinline__ float mt_row(float4 r0, float4 r1, float4 r2,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz, float best) {
     const float v0x = r0.x, v0y = r0.y, v0z = r0.z;
     const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
     const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
@@ -65,7 +62,16 @@ __device__ __forceinline__ float mt_slot(const float4* __restrict__ row,
     return ok ? t : __int_as_float(0x7f800000);
 }
 
-// The leaf test of the exact walks, done by the whole warp.  Every lane of
+// mt_row of the row at `row`.
+__device__ __forceinline__ float mt_slot(const float4* __restrict__ row,
+                                         float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float best) {
+    return mt_row(__ldg(row), __ldg(row + 1), __ldg(row + 2), ox, oy, oz, dx, dy, dz, best);
+}
+
+// The leaf test of the threaded walk (threaded_traverse.cu; the BVH8 walk
+// tests only the groups of slots its ray enters, bvh8_traverse.cu), done
+// by the whole warp.  Every lane of
 // the warp calls it in the same iteration of its walk loop; a lane whose
 // step landed on a leaf passes pending = true and that cluster's id.  For
 // each pending lane in turn, lowest lane first, its ray, best t and cluster

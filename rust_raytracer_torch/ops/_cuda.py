@@ -139,10 +139,10 @@ def attributes(name: str) -> dict:
 def launch(name: str, ptrs, ints, device) -> None:
     """Call the C function `name` on the current stream of `device`, with
     `device` current (a kernel launches into the current device's context);
-    raise if the launch failed."""
+    raise if the launch failed.  A pointer given as None is null."""
     fn = function(name, len(ptrs), len(ints))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(p.data_ptr() for p in ptrs), *ints, stream)
+        err = fn(*(None if p is None else p.data_ptr() for p in ptrs), *ints, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")

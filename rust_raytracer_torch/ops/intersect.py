@@ -187,10 +187,12 @@ def intersect_planes(pack, org, dirn, t_min, t_max):
 
 
 def intersect_triangles(pack, org, dirn, t_min, t_max, kernel: str = "auto",
-                        return_stats: bool = False):
+                        return_stats: bool = False, k1_counts=None):
     """Closest triangle hit: (t, slot) with t == t_max where nothing was
     hit (see ops/threaded.py for the contract), through the traversal
-    `kernel` names (see KERNELS).  With return_stats=True the
+    `kernel` names (see KERNELS).  `k1_counts`, a (2,) int64 counter, has
+    the BVH8 kernel's leaf visits and groups tested added to it where that
+    kernel runs (ops/bvh8.py).  With return_stats=True the
     return is (t, slot, stats), stats["wf_overflow"] the number of packets
     that overflowed a wavefront cap (a 0-d int64 tensor; 0 for the exact
     walk).  The reference's VMEM-fit check for the wavefront pipeline
@@ -213,7 +215,7 @@ def intersect_triangles(pack, org, dirn, t_min, t_max, kernel: str = "auto",
     elif kernel == "threaded" or (kernel == "auto" and not bvh8.fits(pack)):
         t, i = threaded.intersect_triangles_threaded(pack, org, dirn, t_min, t_max)
     else:
-        t, i = bvh8.intersect_triangles_bvh8(pack, org, dirn, t_min, t_max)
+        t, i = bvh8.intersect_triangles_bvh8(pack, org, dirn, t_min, t_max, counts=k1_counts)
     if return_stats:
         return t, i, {"wf_overflow": ov}
     return t, i

@@ -523,18 +523,20 @@ def attributes():
 
 
 def fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel, t_min,
-                 volume_hits=None):
+                 volume_hits=None, k1_counts=None):
     """KV1 -> the triangle walk -> (in a scene with volumes KV-FF) -> KV2: a
     path vertex on the card, as render/integrator.py:shade_vertex returns
     it: (emission, weight, new_dir, ended, pos, stats).  In a scene with volumes KV2 adds the
     `alive` lanes' scattering events to `volume_hits` (the pool step's
-    counter, (VOLUME_SLOTS,) int64 read as its sum), one atomic a warp."""
+    counter, (VOLUME_SLOTS,) int64 read as its sum), one atomic a warp;
+    the BVH8 walk adds its leaf visits and groups tested to `k1_counts`."""
     org, dirn = org.contiguous(), dirn.contiguous()
     with torch.no_grad():
         t_sph, i_sph, t_pln, i_pln, tri_tmax = analytic_hits(pack, static, org, dirn, t_min,
                                                              alive)
         t_tri, i_tri, stats = isect.intersect_triangles(pack, org, dirn, t_min, tri_tmax,
-                                                        kernel=kernel, return_stats=True)
+                                                        kernel=kernel, return_stats=True,
+                                                        k1_counts=k1_counts)
         hits = (t_sph, i_sph, t_pln, i_pln, t_tri.contiguous(), i_tri.contiguous())
         merged = free_flight(pack, static, org, dirn, ctx, t_min, hits) if pack.vol_kinds else None
         return (*shade_hits(pack, static, org, dirn, ctx, light_bias, hits, merged, alive,

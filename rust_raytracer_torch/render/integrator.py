@@ -118,7 +118,7 @@ def shade_hits(pack, static, org, dirn, hit, ctx, light_bias):
 
 
 def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
-                 kernel: str = "auto", volume_hits=None):
+                 kernel: str = "auto", volume_hits=None, k1_counts=None):
     """One path vertex: closest hit, texture program, NEE-mixture shading,
     miss -> background.
 
@@ -128,14 +128,16 @@ def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
     device; 0 for the exact walks).  `volume_hits`, the pool step's
     (ops/vertex.py:VOLUME_SLOTS,) int64 counter read as its sum, if given
     in a scene with volumes, has the vertex's free-flight scattering
-    events of the `alive` lanes added to it in place.  On the
+    events of the `alive` lanes added to it in place; `k1_counts`, its
+    (2,) int64 counter of the BVH8 kernel, the walk's leaf visits and
+    groups tested (on the card; the CPU's walk counts nothing).  On the
     card (ops/vertex.py:use_kernels) this is KV1, the walk, KV-FF (in a
     scene with volumes) and KV2 (ops/vertex.py:fused_vertex); its plain
     version, which the CPU runs, is `intersect` and `shade_hits`.
     """
     if vertex.use_kernels(pack, org, dirn):
         return vertex.fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel,
-                                   T_MIN, volume_hits)
+                                   T_MIN, volume_hits, k1_counts)
     vertex.plain_calls["vertex_hit"] += 1
     vertex.plain_calls["vertex_shade"] += 1
     if pack.vol_kinds:

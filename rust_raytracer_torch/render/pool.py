@@ -198,8 +198,11 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
     that the step owns (a graph's static buffer), to which, in a scene with
     volumes, every step adds the scattering events of its live lanes (the
     shading kernel's one atomic a warp, no launch of its own); a scene
-    without volumes leaves it alone.  `run_pool` zeroes it at a render's
-    start and reads it at its end."""
+    without volumes leaves it alone.  `step.k1_counters` holds each shard's
+    (2,) int64 counter of the BVH8 kernel, to which every step on the card
+    that runs it adds the walk's leaf visits and groups tested (the
+    kernel's atomics, no launch of its own).  `run_pool` zeroes both at a
+    render's start and reads them at its end."""
     total = int(total)
     if mesh is None:
         parts = [(pack.device, 0, total)]
@@ -207,13 +210,15 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
         parts = [(dev, *_shard_quota(mesh.first + i, mesh.n_shards, total))
                  for i, dev in enumerate(mesh.devices)]
     replica = pmesh.replicas(pack)
-    local_steps, counters = [], []
+    local_steps, counters, k1_counters = [], [], []
     for dev, job_base, quota in parts:
         vertex.prepare(replica(dev), static, camera)
         fn = _local_step(static, camera, spp, seed, kernel, job_base, quota, dev)
         counters.append(fn.volume_hits)
+        k1_counters.append(fn.k1_counts)
         if graph and graphs.applies(dev, kernel, pack):
-            fn = graphs.GraphedStep(fn, counters=(fn.volume_hits,) if pack.vol_kinds else ())
+            fn = graphs.GraphedStep(
+                fn, counters=((fn.volume_hits,) if pack.vol_kinds else ()) + (fn.k1_counts,))
         local_steps.append(fn)
 
     if mesh is None:
@@ -231,6 +236,7 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
 
     step.shard_steps = tuple(local_steps)
     step.volume_counters = tuple(counters)
+    step.k1_counters = tuple(k1_counters)
     return step
 
 
@@ -241,17 +247,20 @@ def _local_step(static, camera, spp: int, seed, kernel: str, job_base: int, quot
     next_flat (0-d).  The one-device step is job_base 0, quota total.  In
     a scene with volumes it adds the scattering events of its live lanes to
     `step.volume_hits`, a (vertex.VOLUME_SLOTS,) int64 tensor on `device`
-    (torch's default device if None) read as its sum."""
+    (torch's default device if None) read as its sum; on the card the BVH8
+    kernel adds its leaf visits and groups tested to `step.k1_counts`, a
+    (2,) int64 tensor on `device`."""
     w = camera.image_width
     max_depth = camera.max_depth
     light_bias = camera.light_bias
     volume_hits = torch.zeros(vertex.VOLUME_SLOTS, dtype=torch.int64, device=device)
+    k1_counts = torch.zeros(2, dtype=torch.int64, device=device)
 
     def step(pack, s: PoolState) -> PoolState:
         ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=s.bounce, seed=seed)
         emission, weight, new_dir, ended, pos, stats = integrator.shade_vertex(
             pack, static, s.org, s.dirn, ctx, light_bias, s.active, kernel=kernel,
-            volume_hits=volume_hits if pack.vol_kinds else None)
+            volume_hits=volume_hits if pack.vol_kinds else None, k1_counts=k1_counts)
         if vertex.use_kernels(pack, s.org, s.dirn):
             out = kernel_tail(s, emission, weight, new_dir, ended, pos, stats["wf_overflow"])
         else:
@@ -292,6 +301,7 @@ def _local_step(static, camera, spp: int, seed, kernel: str, job_base: int, quot
         return refill_plain(s, perm, lanes, wf_overflow, camera, quota, job_base, spp, seed)
 
     step.volume_hits = volume_hits
+    step.k1_counts = k1_counts
     return step
 
 
@@ -406,6 +416,14 @@ def volume_scatters(mesh: Optional[pmesh.Mesh], counters) -> int:
     return _process_sums(mesh, [sum(int(c.sum()) for c in counters)])[0]
 
 
+def k1_sums(mesh: Optional[pmesh.Mesh], counters) -> tuple:
+    """(leaf visits, groups tested): make_step's `k1_counters` summed over
+    this process's shards and the mesh's processes, host ints: one small
+    read a shard."""
+    reads = [c.tolist() for c in counters]
+    return _process_sums(mesh, [sum(r[k] for r in reads) for k in range(2)])
+
+
 def sum_planes(mesh: pmesh.Mesh, state: ShardedState, device) -> torch.Tensor:
     """The image of a sharded render: the shards' planes copied to `device`
     and added there in shard order (the same image from run to run), then
@@ -477,12 +495,13 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     `metrics`, a utils/metrics.RenderMetrics, records at each poll the
     steps, the live lanes, the jobs issued and the wavefront overflow
     packets out of all 8-lane packets traced, as the reference's pool
-    does, and in a scene with volumes the render's free-flight scattering
-    events (`volume_hits`: the step's counters, zeroed here and read once
-    the loop has ended).  With `mesh`, n_lanes (a multiple of the shard
-    count) is the global pool, of which this process holds its shards'
-    share, each shard's state on its device (`init_pool`), and the state
-    returned is a ShardedState.  `step`, if given, is the make_step of
+    does, in a scene with volumes the render's free-flight scattering
+    events (`volume_hits`), and the BVH8 kernel's leaf visits and groups
+    tested (`k1_leaf_visits`, `k1_groups_tested`): the step's counters,
+    zeroed here and read once the loop has ended.  With `mesh`, n_lanes
+    (a multiple of the shard count) is the global pool, of which this
+    process holds its shards' share, each shard's state on its device
+    (`init_pool`), and the state returned is a ShardedState.  `step`, if given, is the make_step of
     these arguments, built before (a Renderer keeps its step, and with it
     the graphs it captured)."""
     total = n_pixels * spp
@@ -492,7 +511,8 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
         step = make_step(pack, static, camera, total, spp, seed, kernel=kernel, mesh=mesh)
     counters = (getattr(step, "volume_counters", ())
                 if metrics is not None and pack.vol_kinds else ())
-    for c in counters:
+    k1_counters = getattr(step, "k1_counters", ()) if metrics is not None else ()
+    for c in counters + k1_counters:
         c.zero_()
 
     def on_poll(state, done_steps, issued, n_active, overflow):
@@ -508,4 +528,6 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
                          on_poll=on_poll, mesh=mesh)
     if counters:
         metrics.volume_hits = volume_scatters(mesh, counters)
+    if k1_counters:
+        metrics.k1_leaf_visits, metrics.k1_groups_tested = k1_sums(mesh, k1_counters)
     return state

@@ -16,6 +16,18 @@ ops/wavefront.py reads `tri_rows`), derived once when the pack is built:
   bvh_node_rows (M, 8) f32    one 32-byte row per threaded-BVH node: the
                               content of the reference's (M, 16) `bvh_rows`
                               (node_rows below)
+  bvh8_leaf_rows (n_clusters * 128, 12) f32   `tri_rows` with each
+                              cluster's slots in the Morton order of their
+                              centroids within the cluster's centroid
+                              bounds, padding last; column 10 holds the
+                              row's slot in its cluster (int32 bits)
+  bvh8_leaf_box (n_clusters, 4, 6) f32   the box (lo xyz, hi xyz) of each
+                              group of 32 consecutive leaf rows, from the
+                              rows' float vertices, widened outward
+                              (LEAF_BOX_PAD); inverted (+inf / -inf) where
+                              the group holds only padding.  K1 reads these
+                              two, and tests only the groups whose box a
+                              ray enters
   bvh8_depth int              levels of internal BVH8 nodes on the longest
                               root-to-leaf path (bounds the kernel's stack)
   vol_kinds  tuple of int     `vol_kind` on the host: each volume's boundary
@@ -101,7 +113,8 @@ _PackBase = NamedTuple(
     "_PackBase",
     [(f, Any) for f in DEVICE_FIELDS]
     + [("tex_data", Tuple[Any, ...]), ("bvh8_box", Any), ("tri_rows", Any),
-       ("bvh_node_rows", Any), ("bvh8_depth", int), ("vol_kinds", Tuple[int, ...]),
+       ("bvh_node_rows", Any), ("bvh8_leaf_rows", Any), ("bvh8_leaf_box", Any),
+       ("bvh8_depth", int), ("vol_kinds", Tuple[int, ...]),
        ("vol_tri_counts", Tuple[int, ...])],
 )
 
@@ -118,6 +131,8 @@ class ScenePack(_PackBase):
             bvh8_box=self.bvh8_box.to(device),
             tri_rows=self.tri_rows.to(device),
             bvh_node_rows=self.bvh_node_rows.to(device),
+            bvh8_leaf_rows=self.bvh8_leaf_rows.to(device),
+            bvh8_leaf_box=self.bvh8_leaf_box.to(device),
         )
 
     @property
@@ -150,6 +165,81 @@ def bvh8_tables(bvh8_aabb: np.ndarray, tri_geom: np.ndarray):
     rows = np.zeros((nc * cl, 12), np.float32)
     rows[:, 0:10] = tri_geom[:, 0:10, :].transpose(0, 2, 1).reshape(nc * cl, 10)
     return box, rows
+
+
+# The widening of a group box (bvh8_leaf_tables): 2^-16 of a bound on the
+# scene's largest coordinate (max |v0| + max |edge|), outward, then one ulp
+# of the box's own float32 coordinate.  A hit that Möller–Trumbore computes
+# in float32 lies within a few ulps of |ray origin - vertex| of the exact
+# triangle (further for rays that graze it); a few ulps of the box alone
+# would not hold every such hit inside its group's box.
+LEAF_BOX_PAD = 2.0 ** -16
+GROUP = 32
+LEAF_CHUNK = 1024   # clusters a pass of the build: bounds its temporaries
+
+
+def _spread10(device) -> torch.Tensor:
+    """The 1024 10-bit ints with two zero bits after each bit (a Morton
+    code's axis), on `device`."""
+    bits = torch.arange(1024, dtype=torch.int64, device=device)
+    table = torch.zeros_like(bits)
+    for k in range(10):
+        table |= ((bits >> k) & 1) << (3 * k)
+    return table
+
+
+def bvh8_leaf_tables(rows: torch.Tensor):
+    """The leaf test's tables from the (n_clusters * 128, 12) f32 triangle
+    rows, on their device (torch ops, LEAF_CHUNK clusters at a time): the
+    (n_clusters * 128, 12) f32 leaf `rows`, each cluster's rows ordered by
+    the 30-bit Morton code of their centroids within the cluster's own
+    centroid bounds, padding slots (zero edges: never hit) last in slot
+    order, with the row's slot in its cluster as int32 bits in column 10
+    (zero in `rows`); and the (n_clusters, 4, 6) f32 `box` of each group of
+    32 consecutive leaf rows over their float vertices v0, v0 + e1, v0 + e2
+    (summed in float32, as the kernel's rows hold them), widened by
+    LEAF_BOX_PAD; a group of padding alone gets lo +inf, hi -inf.  Every
+    step is exact or IEEE float32, so the CPU and the card build the same
+    tables."""
+    nc = rows.shape[0] // 128
+    leaf = torch.empty_like(rows)
+    box = rows.new_empty((nc, 128 // GROUP, 6))
+    if nc:
+        pad = LEAF_BOX_PAD * float(rows[:, 0:3].abs().amax() + rows[:, 3:9].abs().amax())
+        spread = _spread10(rows.device)
+        for c in range(0, nc, LEAF_CHUNK):
+            part = slice(c * 128, (c + LEAF_CHUNK) * 128)
+            _leaf_chunk(rows[part], leaf[part], box[c:c + LEAF_CHUNK], pad, spread)
+    return leaf, box
+
+
+def _leaf_chunk(rows, leaf, box, pad: float, spread):
+    """bvh8_leaf_tables of the clusters of `rows`, written into `leaf` and
+    `box`."""
+    n = rows.shape[0] // 128
+    r = rows.view(n, 128, 12)
+    inf = torch.tensor(float("inf"), dtype=rows.dtype, device=rows.device)
+    real = (r[..., 3:9] != 0).any(-1)                                # (n, 128)
+    cent = torch.where(real[..., None], r[..., 0:3] + (r[..., 3:6] + r[..., 6:9]) / 3.0, inf)
+    c_lo = cent.amin(1, keepdim=True)
+    c_hi = torch.where(real[..., None], cent, -inf).amax(1, keepdim=True)
+    span = torch.where(c_hi > c_lo, c_hi - c_lo, torch.ones_like(c_hi))
+    q = torch.nan_to_num((cent - c_lo) / span * 1024.0, nan=0.0).clamp(0, 1023).to(torch.int64)
+    key = spread[q[..., 0]] | (spread[q[..., 1]] << 1) | (spread[q[..., 2]] << 2)
+    perm = torch.sort(torch.where(real, key, 1 << 30), dim=1, stable=True).indices
+
+    out = leaf.view(n, 128, 12)
+    torch.gather(r, 1, perm[..., None].expand(-1, -1, 12), out=out)
+    out.view(torch.int32)[..., 10] = perm.to(torch.int32)
+    v0, a, b = out[..., 0:3], out[..., 0:3] + out[..., 3:6], out[..., 0:3] + out[..., 6:9]
+    filled = torch.gather(real, 1, perm)[..., None]
+    lo = torch.where(filled, torch.minimum(torch.minimum(v0, a), b), inf)
+    hi = torch.where(filled, torch.maximum(torch.maximum(v0, a), b), -inf)
+    g_lo = lo.view(n, 128 // GROUP, GROUP, 3).amin(2).double()      # (n, 4, 3)
+    g_hi = hi.view(n, 128 // GROUP, GROUP, 3).amax(2).double()
+    empty = torch.isinf(g_lo[..., 0:1])
+    box[..., 0:3] = torch.where(empty, inf, torch.nextafter((g_lo - pad).float(), -inf))
+    box[..., 3:6] = torch.where(empty, -inf, torch.nextafter((g_hi + pad).float(), inf))
 
 
 def node_rows(bvh_min, bvh_max, hit_link, miss_link, leaf_start,
@@ -205,14 +295,18 @@ def from_numpy(leaves: Dict[str, np.ndarray], tex_data: tuple, device) -> SceneP
                for f in DEVICE_FIELDS}
     box, rows = bvh8_tables(np.asarray(leaves["bvh8_aabb"]),
                             np.asarray(leaves["tri_geom"]))
+    tri_rows = torch.from_numpy(rows).to(device)
+    leaf_rows, leaf_box = bvh8_leaf_tables(tri_rows)
     nodes = node_rows(*(np.asarray(leaves[f]) for f in (
         "bvh_min", "bvh_max", "bvh_hit_link", "bvh_miss_link", "bvh_leaf_start")))
     return ScenePack(
         **tensors,
         tex_data=tuple(torch.tensor(np.asarray(d), device=device) for d in tex_data),
         bvh8_box=torch.from_numpy(box).to(device),
-        tri_rows=torch.from_numpy(rows).to(device),
+        tri_rows=tri_rows,
         bvh_node_rows=torch.from_numpy(nodes).to(device),
+        bvh8_leaf_rows=leaf_rows,
+        bvh8_leaf_box=leaf_box,
         bvh8_depth=bvh8_depth(np.asarray(leaves["bvh8_child"])),
         vol_kinds=tuple(int(k) for k in np.asarray(leaves["vol_kind"])),
         vol_tri_counts=vol_tri_counts(np.asarray(leaves["vol_tri_e1"]),

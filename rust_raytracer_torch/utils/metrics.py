@@ -58,6 +58,11 @@ class RenderMetrics:
     # step's counter (on the card the shading kernel's), read when the
     # render's loop has ended; 0 in a scene without volumes
     volume_hits: int = 0
+    # the BVH8 kernel's leaf visits and the groups of 32 slots it tested
+    # there (of 4 a visit): the pool step's counter, on the card, read when
+    # the render's loop has ended; 0 on the CPU and for the other walks
+    k1_leaf_visits: int = 0
+    k1_groups_tested: int = 0
 
     def record_step(self, n_alive: int, n_lanes: int, issued: int,
                     weight: int = 1):
@@ -87,6 +92,9 @@ class RenderMetrics:
         }
         if self.volume_hits:
             out["volume_hits"] = self.volume_hits
+        if self.k1_leaf_visits:
+            out["k1_leaf_visits"] = self.k1_leaf_visits
+            out["k1_groups_tested"] = self.k1_groups_tested
         if self.wf_total_packets:
             out["wf_overflow_packets"] = self.wf_overflow_packets
             out["wf_overflow_frac"] = self.wf_overflow_packets / self.wf_total_packets

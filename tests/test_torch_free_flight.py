@@ -86,7 +86,7 @@ class Recorder:
 def _walk_recorded(monkeypatch, rec):
     """intersect_triangles as a stub that logs "walk" in the recorder and
     returns the plain version's no-triangle result."""
-    def walk(pack, org, dirn, t_min, t_max, kernel="auto", return_stats=False):
+    def walk(pack, org, dirn, t_min, t_max, kernel="auto", return_stats=False, k1_counts=None):
         rec.calls.append(("walk", ()))
         i = torch.full((org.shape[0],), -1, dtype=torch.int32)
         return t_max, i, {"wf_overflow": torch.zeros((), dtype=torch.int64)}

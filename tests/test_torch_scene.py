@@ -315,6 +315,34 @@ def test_bvh8_kernel_tables(name):
     assert pack.bvh8_depth == depth(0)
     assert 8 * pack.bvh8_depth + 1 <= tbvh8.STACK
 
+    # the leaf test's tables: each cluster's rows permuted, each with its
+    # slot, padding (zero edges) last; every real triangle's float box
+    # inside its group's box; a group of padding alone inverted
+    leaf, gbox = pack.bvh8_leaf_rows.numpy(), pack.bvh8_leaf_box.numpy()
+    nc = geom.shape[0]
+    assert leaf.dtype == np.float32 and leaf.shape == (nc * 128, 12)
+    assert gbox.dtype == np.float32 and gbox.shape == (nc, 4, 6)
+    leaf = leaf.reshape(nc, 128, 12)
+    perm = leaf.view(np.int32)[..., 10].astype(np.int64)
+    np.testing.assert_array_equal(np.sort(perm, axis=1), np.broadcast_to(np.arange(128), (nc, 128)))
+    np.testing.assert_array_equal(leaf[..., 0:10],
+                                  np.take_along_axis(rows, perm[..., None], 1)[..., 0:10])
+    np.testing.assert_array_equal(leaf[..., 11], 0.0)
+    real = (rows[:, :, 3:9] != 0).any(-1)
+    assert real.any() and (~real).any()
+    real_p = np.take_along_axis(real, perm, axis=1)
+    assert not (~real_p[:, :-1] & real_p[:, 1:]).any()
+    v0, e1, e2 = rows[..., 0:3], rows[..., 3:6], rows[..., 6:9]
+    verts = np.stack([v0, v0 + e1, v0 + e2], axis=2)
+    group = np.argsort(perm, axis=1) // 32                      # each slot's group
+    box = np.take_along_axis(gbox, group[..., None], axis=1)    # (nc, 128, 6)
+    assert (verts.min(2)[real] >= box[real][:, 0:3]).all()
+    assert (verts.max(2)[real] <= box[real][:, 3:6]).all()
+    empty = ~real_p.reshape(nc, 4, 32).any(-1)
+    assert empty.any() and (~empty).any()
+    assert (gbox[empty][:, 0:3] > gbox[empty][:, 3:6]).all()
+    assert (gbox[~empty][:, 0:3] <= gbox[~empty][:, 3:6]).all()
+
 
 @pytest.mark.parametrize("name", ["mini_dragon", "soup"])
 def test_threaded_node_rows(name):
