@@ -2892,7 +2892,7 @@ def main():
         if name.startswith("wf_cull") and a["local_bytes"]:
             raise AssertionError(f"{name}_kernel spills: {a['local_bytes']} local bytes")
     for name, a in vertex.attributes().items():
-        held = "; the texture program's values" if name == "vertex_shade" else ""
+        held = "; the texture closure's values" if name == "vertex_shade" else ""
         log(f"{name}_kernel: {a['registers']} registers, {a['local_bytes']} local bytes "
             f"(stack frame and spills{held}), {a['shared_bytes']} static shared bytes a "
             f"thread block")

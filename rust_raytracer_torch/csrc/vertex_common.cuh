@@ -108,19 +108,24 @@ enum Header {
     H_NS = 0, H_AFFINE, H_NP, H_NT, H_NVOL, H_NSKY, H_NSUN, H_NMAT, H_NLIGHT, H_NNODE,
     H_NPROXY,
     H_F_SPH, H_F_PLN, H_F_SUN, H_F_MAT, H_F_PROXY, H_F_CONST, H_F_NODE, H_F_BG,
-    H_I_SPH, H_I_PLN, H_I_VOL, H_I_SKY, H_I_SUN, H_I_MAT, H_I_LIGHT, H_I_NODE,
-    H_F_VOL, H_I_VOLK,
+    H_I_SPH, H_I_PLN, H_I_VOL, H_I_MAT, H_I_LIGHT, H_I_NODE, H_F_VOL, H_I_VOLK, H_I_CLOS,
     HEADER = 32
 };
 // row widths: sphere center(3) radius inv(9) fwd(9) | mat; plane corner
 // uhalf vhalf dual_u dual_v normal (3 each) area | backface mat; material
-// inv_ior ior | type albedo_tex rough_tex normal_tex; light | kind idx;
+// inv_ior ior | type; light | kind idx;
 // proxy sphere center radius; texture node scale | kind c0 c1 c2 a b c d;
 // volume center(3) axes(9) halfsize(3) neg_inv_density | kind, the offset
-// in ftab and the count of its mesh block's rows (v0 e1 e2, 9 floats each)
+// in ftab and the count of its mesh block's rows (v0 e1 e2, 9 floats each);
+// texture closure (one a material, then a sky, then a sun: the only
+// record of the texture roots) | the offset in itab of its entries, their
+// count, the positions of its albedo, roughness, normal-map and emission
+// roots (-1 where none); closure entry | node, the positions of its
+// children c0 c1 c2 in the closure
 enum Rows {
-    SPH_F = 22, SPH_I = 1, PLN_F = 19, PLN_I = 2, SUN_F = 3, MAT_F = 2, MAT_I = 4,
-    LIGHT_I = 2, PROXY_F = 4, NODE_F = 1, NODE_I = 8, TRI_ATTR = 32, VOL_F = 16, VOL_I = 3
+    SPH_F = 22, SPH_I = 1, PLN_F = 19, PLN_I = 2, SUN_F = 3, MAT_F = 2, MAT_I = 1,
+    LIGHT_I = 2, PROXY_F = 4, NODE_F = 1, NODE_I = 8, TRI_ATTR = 32, VOL_F = 16, VOL_I = 3,
+    CLOS_I = 6, CLOS_E = 4
 };
 // ops/texture.py node kinds, scene/pack.py ids
 enum TexKind { CONSTANT = 0, CHECKER, CHECKER_SOLID, IMAGE, LERP, NOISE_SOLID, CHANNEL,
@@ -130,7 +135,7 @@ enum Prim { PRIM_NONE = 0, PRIM_SPHERE, PRIM_PLANE, PRIM_TRIANGLE, PRIM_VOLUME, 
 enum Mat { MAT_LAMBERTIAN = 0, MAT_METAL, MAT_DIELECTRIC, MAT_GLOSSY, MAT_EMISSIVE,
            MAT_ISOTROPIC, MAT_NORMAL_DEBUG };
 enum Light { LIGHT_SPHERE = 0, LIGHT_PLANE, LIGHT_SKY, LIGHT_SUN, LIGHT_PROXY };
-// the largest texture program the shading kernel takes (ops/vertex.py:MAX_NODES)
+// the longest texture closure the shading kernel takes (ops/vertex.py:MAX_NODES)
 constexpr int MAX_NODES = 32;
 
 // ops/intersect.py:plane_hit -> t, inf on a miss (u, v are not needed)

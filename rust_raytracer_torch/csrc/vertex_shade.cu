@@ -17,12 +17,15 @@
 // free-flight sample made) and its RNG key once, and writes emission,
 // weight, next direction, ended and position once (~44 bytes).  In
 // between it works in registers and a small local array: the hit record
-// of the one primitive kind it hit, every node of the texture program in
-// topological order (MAX_NODES values, ops/vertex.py's bound), the 7-way
-// material on only the branch its material takes, and the NEE mixture
-// over the light list, each pcg4d draw made where the plain version makes
-// it (core/rng.py keys them by stream, so no draw depends on another).
-// The scene is read from ops/vertex.py's flat tables (node kinds, children,
+// of the one primitive kind it hit, the texture nodes that its shading
+// key's roots reach (its material's albedo, roughness and normal map; on
+// the sky or the sun, material 0's and the emission), in topological
+// order (ops/vertex.py:texture_closures, at most MAX_NODES values: the
+// cost does not grow with the scene's materials), the 7-way material on
+// only the branch its material takes, and the NEE mixture over the light
+// list, each pcg4d draw made where the plain version makes it
+// (core/rng.py keys them by stream, so no draw depends on another).  The
+// scene is read from ops/vertex.py's flat tables (closures, node kinds,
 // constants, image and Perlin data at offsets; material, light, sphere and
 // plane rows) and from the pack's tri_attr rows.
 //
@@ -38,7 +41,7 @@
 // What bounds it: bytes on cornell_dragon, ~121 a lane plus the 128-byte
 // triangle rows its hits gather (0.014 ms at 2^18 lanes by 3.35 TB/s),
 // against ~650 f32 operations a lane (the hit record and shading, ~120 a
-// light for the NEE sample and pdf, six pcg4d draws); a texture program
+// light for the NEE sample and pdf, six pcg4d draws); a texture closure
 // with Perlin nodes (~1,700 operations a 7-octave node) makes it
 // operations.  The branches of a warp's lanes (materials, light picks,
 // primitive kinds) run one after another, and the value array sits in
@@ -52,8 +55,9 @@
 using namespace rrt;
 
 #define THREADS 128
-// slots of the free-flight counter: a block's warps add to slot
-// blockIdx % VOL_SLOTS, so no one address takes every warp's atomic
+// slots of the free-flight and the sphere-hit counters: a block's warps
+// add to slot blockIdx % VOL_SLOTS, so no one address takes every warp's
+// atomic
 #define VOL_SLOTS 32
 
 namespace {
@@ -65,6 +69,15 @@ struct Scene {
 };
 
 __device__ __forceinline__ int hdr(const Scene& s, int k) { return s.i[k]; }
+
+// one atomic a warp: every lane of the warp that is still here votes
+// `flag`, its lowest adds the votes to its block's slot of `slots`
+__device__ __forceinline__ void warp_count(unsigned long long* slots, bool flag) {
+    const unsigned mask = __activemask();
+    const unsigned votes = __ballot_sync(mask, flag);
+    if (votes && (int)(threadIdx.x & 31u) == __ffs(mask) - 1)
+        atomicAdd(slots + (blockIdx.x & (VOL_SLOTS - 1)), (unsigned long long)__popc(votes));
+}
 
 // ---- ops/texture.py ----
 
@@ -93,18 +106,27 @@ __device__ float perlin_sample(f3 p, const float* grad, const int* perm) {
     return acc;
 }
 
-__device__ void eval_program(const Scene& sc, float2 uv, f3 pos, f3* val) {
-    const int nn = hdr(sc, H_NNODE);
+// ops/texture.py:eval_program on one closure row `clos`: its nodes in
+// topological order into val[0, count), a child read at its position in
+// the closure; each node's arithmetic the plain version's
+__device__ void eval_closure(const Scene& sc, const int* clos, float2 uv, f3 pos, f3* val) {
+    const int nn = clos[1];
+    const int* ent = sc.i + clos[0];
     const float* cst = sc.f + hdr(sc, H_F_CONST);
     const float* nf = sc.f + hdr(sc, H_F_NODE);
     const int* ni = sc.i + hdr(sc, H_I_NODE);
-    for (int k = 0; k < nn; ++k) {
+    for (int p = 0; p < nn; ++p) {
+        const int* e = ent + p * CLOS_E;
+        const int k = e[0];
         const int* r = ni + k * NODE_I;
         const float scale = nf[k * NODE_F];
+        // every node has a constant row: load it beside the node's row,
+        // not after its kind is known
+        const f3 c = ld3(cst + 3 * k);
         f3 v;
         switch (r[0]) {
         case CONSTANT:
-            v = ld3(cst + 3 * k);
+            v = c;
             break;
         case CHECKER: {
             const float inv = 1.0f / scale;
@@ -112,7 +134,7 @@ __device__ void eval_program(const Scene& sc, float2 uv, f3 pos, f3* val) {
                 (long long)clamp2((uv.x * 2.0f) * inv, 0.0f, 2147483648.0f);
             const long long iv =
                 (long long)clamp2((uv.y * 2.0f) * inv, 0.0f, 2147483648.0f);
-            v = ((iu + iv) % 2 == 0) ? val[r[1]] : val[r[2]];
+            v = ((iu + iv) % 2 == 0) ? val[e[1]] : val[e[2]];
             break;
         }
         case CHECKER_SOLID: {
@@ -120,7 +142,7 @@ __device__ void eval_program(const Scene& sc, float2 uv, f3 pos, f3* val) {
             const long long sum = (long long)(int)floorf(pos.x * inv)
                                   + (long long)(int)floorf(pos.y * inv)
                                   + (long long)(int)floorf(pos.z * inv);
-            v = (sum % 2 == 0) ? val[r[1]] : val[r[2]];
+            v = (sum % 2 == 0) ? val[e[1]] : val[e[2]];
             break;
         }
         case IMAGE: {
@@ -144,8 +166,8 @@ __device__ void eval_program(const Scene& sc, float2 uv, f3 pos, f3* val) {
             break;
         }
         case LERP: {
-            const float t = val[r[3]].x;
-            const f3 a = val[r[1]], b = val[r[2]];
+            const float t = val[e[3]].x;
+            const f3 a = val[e[1]], b = val[e[2]];
             v = add3(scale3(a, 1.0f - t), scale3(b, t));
             break;
         }
@@ -166,7 +188,7 @@ __device__ void eval_program(const Scene& sc, float2 uv, f3 pos, f3* val) {
             break;
         }
         case CHANNEL: {
-            const f3 a = val[r[1]];
+            const f3 a = val[e[1]];
             const float c = r[4] == 0 ? a.x : (r[4] == 1 ? a.y : a.z);
             v = mk3(c, c, c);
             break;
@@ -175,7 +197,7 @@ __device__ void eval_program(const Scene& sc, float2 uv, f3 pos, f3* val) {
             v = mk3(uv.x, uv.y, 0.5f);
             break;
         }
-        val[k] = v;
+        val[p] = v;
     }
     if (nn == 0) val[0] = mk3(0.0f, 0.0f, 0.0f);
 }
@@ -314,10 +336,16 @@ __device__ __forceinline__ f3 cosine_about(f3 nrm, const Ctx& ctx, uint32_t stre
 // or one int64 (stride 0), or NULL and bounce_val; seed one int64 or NULL
 // and seed_val.  Out: emission, weight, new_dir, pos (n, 3) f32, ended (n,)
 // bool.  vol_count (VOL_SLOTS int64), if not NULL (merged == 1 only),
-// gains the lanes whose merged hit is a volume's scattering event, of
-// those alive (n,) bool marks (all lanes if alive is NULL): one atomic a
-// warp, into its block's slot.
-__global__ void __launch_bounds__(THREADS)
+// gains the lanes whose merged hit is a volume's scattering event, and
+// sph_count (VOL_SLOTS int64), if not NULL, the lanes whose closest hit is
+// a sphere, of those alive (n,) bool marks (all lanes if alive is NULL):
+// one atomic a warp each, into its block's slot.
+//
+// Seven blocks an SM: with the closures' pointers the kernel took 93
+// registers (71 before), five blocks an SM; bounded to 72 (48 bytes more
+// in local memory) it ran 2-5% faster on cornell_dragon's, cornell_smoke's
+// and golden_monkey's mid step (PERF.md §6).
+__global__ void __launch_bounds__(THREADS, 7)
 vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab,
                     const float* __restrict__ tri_attr, const float* __restrict__ org,
                     const float* __restrict__ dirn, const float* __restrict__ t_a,
@@ -328,6 +356,7 @@ vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab
                     const long long* __restrict__ bounce, const long long* __restrict__ seed,
                     const unsigned char* __restrict__ alive,
                     unsigned long long* __restrict__ vol_count,
+                    unsigned long long* __restrict__ sph_count,
                     float* __restrict__ emission_out, float* __restrict__ weight_out,
                     float* __restrict__ dir_out, unsigned char* __restrict__ ended_out,
                     float* __restrict__ pos_out, int n, int merged, int bounce_stride,
@@ -347,15 +376,8 @@ vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab
         t = t_a[i];
         kind = kind_in[i];
         prim = i_a[i];
-        if (vol_count) {
-            // every lane of the warp that is still here votes; its lowest adds
-            const bool scatter = kind == PRIM_VOLUME && (alive == nullptr || alive[i]);
-            const unsigned mask = __activemask();
-            const unsigned votes = __ballot_sync(mask, scatter);
-            if (votes && (int)(threadIdx.x & 31u) == __ffs(mask) - 1)
-                atomicAdd(vol_count + (blockIdx.x & (VOL_SLOTS - 1)),
-                          (unsigned long long)__popc(votes));
-        }
+        if (vol_count)
+            warp_count(vol_count, kind == PRIM_VOLUME && (alive == nullptr || alive[i]));
     } else {
         const float ts = t_a[i], tp = t_b[i];
         const float tt = i_c[i] >= 0 ? t_c[i] : f_inf();
@@ -388,6 +410,7 @@ vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab
         prim = nsky - 1;
         t = f_inf();
     }
+    if (sph_count) warp_count(sph_count, kind == PRIM_SPHERE && (alive == nullptr || alive[i]));
 
     // ---- the hit record (ops/intersect.py:hit_attributes) ----
     const int prim0 = prim > 0 ? prim : 0;
@@ -510,9 +533,16 @@ vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab
     const bool valid = kind != PRIM_NONE;
     if (!valid) normal = mk3(0.0f, 0.0f, 1.0f);  // integrator.shade_hits
 
-    // ---- the texture program (ops/texture.py:eval_program) ----
+    // ---- the texture program (ops/texture.py:eval_program), only the
+    // closure of the lane's shading key: its material, or on the sky or
+    // the sun that entry (whose closure holds material 0's roots too) ----
+    const int nmat = hdr(sc, H_NMAT);
+    int key = mat;
+    if (nsky && kind == PRIM_SKY) key = nmat + (prim0 < nsky - 1 ? prim0 : nsky - 1);
+    if (nsun && kind == PRIM_SUN) key = nmat + nsky + (prim0 < nsun - 1 ? prim0 : nsun - 1);
+    const int* clos = sc.i + hdr(sc, H_I_CLOS) + key * CLOS_I;
     f3 val[MAX_NODES];
-    eval_program(sc, uv, pos, val);
+    eval_closure(sc, clos, uv, pos, val);
 
     // ---- shading (ops/shade.py:shade) ----
     const Ctx ctx{(uint32_t)pixel[i], (uint32_t)sample[i],
@@ -522,14 +552,13 @@ vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab
     const float* mf = sc.f + hdr(sc, H_F_MAT) + mat * MAT_F;
     const int* mi = sc.i + hdr(sc, H_I_MAT) + mat * MAT_I;
     const int mtype = mi[0];
-    const f3 albedo = val[mi[1]];
-    const float rough = val[mi[2]].x;
+    const f3 albedo = val[clos[2]];
+    const float rough = val[clos[3]].x;
     const float inv_ior = mf[0], ior = mf[1];
-    const int normal_tex = mi[3];
 
     f3 nrm_mapped = normal;
-    if (normal_tex >= 0) {
-        const f3 nm = val[normal_tex];
+    if (clos[4] >= 0) {
+        const f3 nm = val[clos[4]];
         const f3 dd = mk3(nm.x - 0.5f, nm.y - 0.5f, nm.z - 0.5f);
         nrm_mapped = normalize_eps(
             add3(add3(scale3(tangent, dd.x), scale3(bitangent, dd.y)), scale3(normal, dd.z)));
@@ -539,10 +568,7 @@ vertex_shade_kernel(const float* __restrict__ ftab, const int* __restrict__ itab
     f3 emission = (is_emissive && front_face) ? albedo : mk3(0.0f, 0.0f, 0.0f);
     const bool is_debug = mtype == MAT_NORMAL_DEBUG && valid && !env;
     if (is_debug) emission = add3(scale3(nrm_mapped, 0.5f), mk3(0.5f, 0.5f, 0.5f));
-    if (nsky && kind == PRIM_SKY)
-        emission = val[sc.i[hdr(sc, H_I_SKY) + (prim0 < nsky - 1 ? prim0 : nsky - 1)]];
-    if (nsun && kind == PRIM_SUN)
-        emission = val[sc.i[hdr(sc, H_I_SUN) + (prim0 < nsun - 1 ? prim0 : nsun - 1)]];
+    if ((nsky && kind == PRIM_SKY) || (nsun && kind == PRIM_SUN)) emission = val[clos[5]];
 
     const bool is_metal = mtype == MAT_METAL, is_dielectric = mtype == MAT_DIELECTRIC;
     const bool is_glossy = mtype == MAT_GLOSSY, is_lambert = mtype == MAT_LAMBERTIAN;
@@ -617,7 +643,7 @@ extern "C" int rrt_vertex_shade(const void* ftab, const void* itab, const void* 
                                 const void* t_c, const void* i_c, const void* kind_in,
                                 const void* pixel, const void* sample, const void* bounce,
                                 const void* seed, const void* alive, void* vol_count,
-                                void* emission, void* weight, void* new_dir,
+                                void* sph_count, void* emission, void* weight, void* new_dir,
                                 void* ended, void* pos, long long n, long long merged,
                                 long long bounce_stride, long long bounce_val,
                                 long long seed_val, float light_bias, float one_minus_bias,
@@ -633,6 +659,7 @@ extern "C" int rrt_vertex_shade(const void* ftab, const void* itab, const void* 
         static_cast<const long long*>(pixel), static_cast<const long long*>(sample),
         static_cast<const long long*>(bounce), static_cast<const long long*>(seed),
         static_cast<const unsigned char*>(alive), static_cast<unsigned long long*>(vol_count),
+        static_cast<unsigned long long*>(sph_count),
         static_cast<float*>(emission), static_cast<float*>(weight), static_cast<float*>(new_dir),
         static_cast<unsigned char*>(ended), static_cast<float*>(pos), (int)n, (int)merged,
         (int)bounce_stride, bounce_val, seed_val, light_bias, one_minus_bias);

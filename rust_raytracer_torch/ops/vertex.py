@@ -32,14 +32,18 @@ A kernel that fails to build or launch raises; nothing falls back.
 `vertex_tables(pack, static)` packs the scene's static parts once into two
 flat device tables, f32 and i32, that KV1, KV-FF and KV2 interpret: a
 header of counts and offsets (csrc/vertex_common.cuh:Header), then the
-sphere, plane, sun, material, proxy-light, light, sky, volume rows (with
-each convex mesh boundary's triangles), the texture program's nodes in
-topological order with their constants, and the image and Perlin data at
-offsets.  `tables` keeps them on the pack object, built outside any
-capture (render/pool.py:make_step and render/renderer.py:BatchProgram
-call `prepare`); `camera_table` does the same for KV4's camera constants.
-A texture program of more than MAX_NODES nodes raises ValueError when its
-tables are built.
+sphere, plane, sun-direction, material, proxy-light, light, volume rows
+(with each convex mesh boundary's triangles), the texture program's nodes
+in topological order with their constants, the image and Perlin data at
+offsets, and the closure table: for each shading key (each material, then
+each sky and each sun, whose lanes also read material 0's roots) its
+texture roots and the nodes they reach, in topological order, which is
+all KV2 evaluates (`texture_closures`).  `tables` keeps them on the pack
+object, built outside any capture (render/pool.py:make_step and
+render/renderer.py:BatchProgram call `prepare`); `camera_table` does the
+same for KV4's camera constants.  A closure of more than MAX_NODES nodes
+raises ValueError when the tables are built; the program itself may be
+of any length.
 
 `launches[name]` counts each kernel's launches, `plain_calls[name]` calls
 routed to its plain version.
@@ -62,24 +66,35 @@ KERNELS = ("vertex_hit", "vertex_shade", "lane_update", "lane_bbox", "compaction
 launches = dict.fromkeys(KERNELS, 0)
 plain_calls = dict.fromkeys(KERNELS, 0)
 
-# the largest texture program KV2 takes: the builtin scenes' largest
-# (tonemap_test, 28 nodes) rounded up to a power of two
+# the longest texture closure KV2 takes (the nodes one shading key's roots
+# reach): the builtin scenes' whole programs (tonemap_test, 28 nodes)
+# rounded up to a power of two
 MAX_NODES = 32   # must match csrc/vertex_common.cuh:MAX_NODES
 
 # csrc/vertex_common.cuh:Header (keep in step)
 (H_NS, H_AFFINE, H_NP, H_NT, H_NVOL, H_NSKY, H_NSUN, H_NMAT, H_NLIGHT, H_NNODE, H_NPROXY,
  H_F_SPH, H_F_PLN, H_F_SUN, H_F_MAT, H_F_PROXY, H_F_CONST, H_F_NODE, H_F_BG,
- H_I_SPH, H_I_PLN, H_I_VOL, H_I_SKY, H_I_SUN, H_I_MAT, H_I_LIGHT, H_I_NODE,
- H_F_VOL, H_I_VOLK) = range(29)
+ H_I_SPH, H_I_PLN, H_I_VOL, H_I_MAT, H_I_LIGHT, H_I_NODE, H_F_VOL, H_I_VOLK,
+ H_I_CLOS) = range(28)
 HEADER = 32
 # csrc/vertex_common.cuh:Rows
-SPH_F, SPH_I, PLN_F, PLN_I, SUN_F, MAT_F, MAT_I = 22, 1, 19, 2, 3, 2, 4
+SPH_F, SPH_I, PLN_F, PLN_I, SUN_F, MAT_F, MAT_I = 22, 1, 19, 2, 3, 2, 1
 LIGHT_I, PROXY_F, NODE_F, NODE_I, VOL_F, VOL_I = 2, 4, 1, 8, 16, 3
+# a closure's row: (offset of its entries in itab, count, the positions of
+# its albedo, roughness, normal-map and emission roots, -1 where it has
+# none); an entry: (node, the positions of its children c0 c1 c2, 0 unused)
+CLOS_I, CLOS_E = 6, 4
 # csrc/pool_refill.cu:Cam
 CAMERA_FLOATS = 20
 
 THREADS_KEY = 256   # csrc/lane_update.cu's block: one box a block
-VOLUME_SLOTS = 32   # csrc/vertex_shade.cu:VOL_SLOTS, the free-flight counter's
+VOLUME_SLOTS = 32   # csrc/vertex_shade.cu:VOL_SLOTS, the slots of a counter row
+# The rows of a pool step's counters, one (COUNTER_ROWS, VOLUME_SLOTS) int64
+# buffer (`new_counters`): KV2's free-flight scattering events and sphere
+# hits, each read as its row's sum, and K1's leaf visits and groups tested
+# in slots 0 and 1 of its row.
+ROW_VOLUME, ROW_SPHERE, ROW_K1 = 0, 1, 2
+COUNTER_ROWS = 3
 
 
 class VertexTables(NamedTuple):
@@ -110,14 +125,38 @@ class _TableRows:
         return off
 
 
+def texture_closures(program, albedo, rough, normal, sky, sun) -> list:
+    """(nodes, roots) of each shading key, in KV2's order of keys: each
+    material m (roots albedo[m], rough[m], normal[m] or None, and no
+    emission), then each sky s and each sun u (material 0's three roots,
+    since such a lane's material id is 0, and the emission root sky[s] or
+    sun[u]).  `nodes` are the ids that the roots reach through the
+    children, ascending: a topological order, as the program's own.  An
+    empty program has empty closures (KV2 then reads zeros, as
+    ops/texture.py:eval_program gives)."""
+    def reach(roots):
+        seen, todo = set(), [r for r in roots if r is not None and 0 <= r < len(program)]
+        while todo:
+            k = todo.pop()
+            if k not in seen:
+                seen.add(k)
+                todo.extend(program[k].children)
+        return sorted(seen)
+
+    def mat_roots(m):
+        return (int(albedo[m]), int(rough[m]), int(normal[m]) if normal[m] >= 0 else None)
+
+    keys = [(*mat_roots(m), None) for m in range(len(albedo))]
+    base = mat_roots(0) if len(albedo) else (0, 0, None)
+    keys += [(*base, int(e)) for e in list(sky) + list(sun)]
+    return [(reach(roots), roots) for roots in keys]
+
+
 def table_arrays(pack, static):
     """The tables as numpy arrays (f32, i32): see the module docstring and
-    csrc/vertex_common.cuh.  Raises ValueError for a program of more than
-    MAX_NODES nodes or a node kind the kernel does not know."""
+    csrc/vertex_common.cuh.  Raises ValueError for a texture closure of
+    more than MAX_NODES nodes or a node kind the kernel does not know."""
     program = static.tex_program
-    if len(program) > MAX_NODES:
-        raise ValueError(f"a texture program of {len(program)} nodes: the shading kernel "
-                         f"takes at most {MAX_NODES} (ops/vertex.py:MAX_NODES)")
 
     def host(t):
         return t.detach().cpu().numpy()
@@ -165,14 +204,12 @@ def table_arrays(pack, static):
             vol_i[vi, 1], vol_i[vi, 2] = b.floats(block), count
     h[H_F_VOL], h[H_I_VOLK] = b.floats(vol), b.ints(vol_i)
     h[H_NSKY] = pack.sky_tex.shape[0]
-    h[H_I_SKY] = b.ints(host(pack.sky_tex))
     h[H_NSUN] = pack.sun_dir.shape[0]
-    h[H_F_SUN], h[H_I_SUN] = b.floats(host(pack.sun_dir)), b.ints(host(pack.sun_tex))
+    h[H_F_SUN] = b.floats(host(pack.sun_dir))
 
     h[H_NMAT] = pack.mat_type.shape[0]
     h[H_F_MAT] = b.floats(np.stack([host(pack.mat_inv_ior), host(pack.mat_ior)], axis=1))
-    h[H_I_MAT] = b.ints(np.stack([host(pack.mat_type), host(pack.mat_albedo_tex),
-                                  host(pack.mat_rough_tex), host(pack.mat_normal_tex)], axis=1))
+    h[H_I_MAT] = b.ints(host(pack.mat_type))
 
     h[H_NLIGHT] = len(static.light_list)
     h[H_I_LIGHT] = b.ints(np.asarray(static.light_list, np.int64).reshape(-1, LIGHT_I))
@@ -210,6 +247,24 @@ def table_arrays(pack, static):
             raise ValueError(f"unknown texture node kind {node.kind}")
     h[H_F_NODE] = b.floats(node_f)
     h[H_I_NODE] = b.ints(node_i)
+
+    closures = texture_closures(program, host(pack.mat_albedo_tex), host(pack.mat_rough_tex),
+                                host(pack.mat_normal_tex), host(pack.sky_tex),
+                                host(pack.sun_tex))
+    rows = np.zeros((len(closures), CLOS_I), np.int64)
+    for key, (nodes, roots) in enumerate(closures):
+        if len(nodes) > MAX_NODES:
+            raise ValueError(f"a texture closure of {len(nodes)} nodes (shading key {key}): "
+                             f"the shading kernel takes at most {MAX_NODES} "
+                             f"(ops/vertex.py:MAX_NODES)")
+        at = {k: p for p, k in enumerate(nodes)}
+        entries = np.zeros((len(nodes), CLOS_E), np.int64)
+        for p, k in enumerate(nodes):
+            entries[p, 0] = k
+            entries[p, 1:1 + len(program[k].children)] = [at[c] for c in program[k].children]
+        rows[key, 0], rows[key, 1] = b.ints(entries), len(nodes)
+        rows[key, 2:] = [-1 if r is None else at.get(r, 0) for r in roots]
+    h[H_I_CLOS] = b.ints(rows)
 
     ftab = np.concatenate(b.f) if b.f else np.zeros(0, np.float32)
     itab = np.concatenate([h] + b.i)
@@ -390,13 +445,14 @@ def free_flight(pack, static, org, dirn, ctx, t_min: float, hits):
 
 
 def shade_hits(pack, static, org, dirn, ctx, light_bias: float, hits, merged=None,
-               alive=None, volume_hits=None):
+               alive=None, volume_hits=None, sphere_hits=None):
     """KV2: (emission, weight, new_dir, ended, pos) on the card.  `hits` is
     (t_sph, i_sph, t_pln, i_pln, t_tri, i_tri); or, with `merged` =
     (t, kind, prim), the merged hit after the volumes (`hits` unused).
     With `merged` and `volume_hits` ((VOLUME_SLOTS,) int64, read as its
     sum), the kernel adds to it the lanes (of `alive`, or all) whose hit is
-    a volume's scattering event."""
+    a volume's scattering event; with `sphere_hits` (the same form), the
+    lanes whose closest hit is a sphere."""
     n, dev = org.shape[0], org.device
     tb = tables(pack, static)
     f32 = torch.float32
@@ -410,8 +466,9 @@ def shade_hits(pack, static, org, dirn, ctx, light_bias: float, hits, merged=Non
            *((x, f32 if k in (0, 2, 4) else torch.int32, (n,)) for k, x in enumerate(ins)))
     pixel, sample, bounce, b_stride, b_val, seed, s_val = _key_fields(ctx, n, "shading")
     _check(dev, *((x, torch.int64, None) for x in (pixel, sample, bounce, seed)))
-    alive = alive if volume_hits is not None else None
-    _check(dev, (alive, torch.bool, (n,)), (volume_hits, torch.int64, (VOLUME_SLOTS,)))
+    alive = alive if volume_hits is not None or sphere_hits is not None else None
+    _check(dev, (alive, torch.bool, (n,)), (volume_hits, torch.int64, (VOLUME_SLOTS,)),
+           (sphere_hits, torch.int64, (VOLUME_SLOTS,)))
     out = (torch.empty((n, 3), dtype=f32, device=dev), torch.empty((n, 3), dtype=f32, device=dev),
            torch.empty((n, 3), dtype=f32, device=dev), torch.empty(n, dtype=torch.bool, device=dev),
            torch.empty((n, 3), dtype=f32, device=dev))
@@ -419,7 +476,7 @@ def shade_hits(pack, static, org, dirn, ctx, light_bias: float, hits, merged=Non
         emission, weight, new_dir, ended, pos = out
         _launch("rrt_vertex_shade",
                 (tb.ftab, tb.itab, pack.tri_attr, org, dirn, *ins, pixel, sample, bounce, seed,
-                 alive, volume_hits, emission, weight, new_dir, ended, pos),
+                 alive, volume_hits, sphere_hits, emission, weight, new_dir, ended, pos),
                 (n, int(merged is not None), b_stride, b_val, s_val),
                 (light_bias, 1.0 - light_bias), dev)
         launches["vertex_shade"] += 1
@@ -522,15 +579,41 @@ def attributes():
     return {name: _cuda.attributes("rrt_" + name) for name in KERNELS}
 
 
+def new_counters(device=None) -> torch.Tensor:
+    """A pool step's counters, zeroed: (COUNTER_ROWS, VOLUME_SLOTS) int64
+    on `device`, a row each (ROW_VOLUME, ROW_SPHERE, ROW_K1)."""
+    return torch.zeros((COUNTER_ROWS, VOLUME_SLOTS), dtype=torch.int64, device=device)
+
+
+def counter_values(counters) -> dict:
+    """{"volume_hits", "sphere_hits", "k1_leaf_visits", "k1_groups_tested"}
+    of one or more `new_counters` buffers (summed), host ints: one read
+    each."""
+    total = [0] * 4
+    for c in counters:
+        rows = c.tolist()
+        for k, v in enumerate((sum(rows[ROW_VOLUME]), sum(rows[ROW_SPHERE]),
+                               rows[ROW_K1][0], rows[ROW_K1][1])):
+            total[k] += v
+    return dict(zip(("volume_hits", "sphere_hits", "k1_leaf_visits", "k1_groups_tested"),
+                    total))
+
+
 def fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel, t_min,
-                 volume_hits=None, k1_counts=None):
+                 counters=None):
     """KV1 -> the triangle walk -> (in a scene with volumes KV-FF) -> KV2: a
     path vertex on the card, as render/integrator.py:shade_vertex returns
-    it: (emission, weight, new_dir, ended, pos, stats).  In a scene with volumes KV2 adds the
-    `alive` lanes' scattering events to `volume_hits` (the pool step's
-    counter, (VOLUME_SLOTS,) int64 read as its sum), one atomic a warp;
-    the BVH8 walk adds its leaf visits and groups tested to `k1_counts`."""
+    it: (emission, weight, new_dir, ended, pos, stats).  With `counters`
+    (`new_counters`), KV2 adds the `alive` lanes' scattering events (in a
+    scene with volumes) and the `alive` lanes whose closest hit is a sphere
+    (in a scene with spheres) to their rows, one atomic a warp each, and
+    the BVH8 walk its leaf visits and groups tested to its row."""
     org, dirn = org.contiguous(), dirn.contiguous()
+    volume_hits = sphere_hits = k1_counts = None
+    if counters is not None:
+        volume_hits = counters[ROW_VOLUME] if pack.vol_kinds else None
+        sphere_hits = counters[ROW_SPHERE] if pack.sph_center.shape[0] else None
+        k1_counts = counters[ROW_K1, :2]
     with torch.no_grad():
         t_sph, i_sph, t_pln, i_pln, tri_tmax = analytic_hits(pack, static, org, dirn, t_min,
                                                              alive)
@@ -540,5 +623,5 @@ def fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel, t_min,
         hits = (t_sph, i_sph, t_pln, i_pln, t_tri.contiguous(), i_tri.contiguous())
         merged = free_flight(pack, static, org, dirn, ctx, t_min, hits) if pack.vol_kinds else None
         return (*shade_hits(pack, static, org, dirn, ctx, light_bias, hits, merged, alive,
-                            volume_hits), stats)
+                            volume_hits=volume_hits, sphere_hits=sphere_hits), stats)
 

@@ -118,18 +118,18 @@ def shade_hits(pack, static, org, dirn, hit, ctx, light_bias):
 
 
 def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
-                 kernel: str = "auto", volume_hits=None, k1_counts=None):
+                 kernel: str = "auto", counters=None):
     """One path vertex: closest hit, texture program, NEE-mixture shading,
     miss -> background.
 
     Returns (emission, weight, new_dir, ended, pos, stats) as the
     reference; stats["wf_overflow"] is the number of packets that
     overflowed a wavefront cap this vertex (a 0-d int64 tensor on the
-    device; 0 for the exact walks).  `volume_hits`, the pool step's
-    (ops/vertex.py:VOLUME_SLOTS,) int64 counter read as its sum, if given
-    in a scene with volumes, has the vertex's free-flight scattering
-    events of the `alive` lanes added to it in place; `k1_counts`, its
-    (2,) int64 counter of the BVH8 kernel, the walk's leaf visits and
+    device; 0 for the exact walks).  `counters`, the pool step's
+    (ops/vertex.py:new_counters), if given, has added to its rows in
+    place: in a scene with volumes the vertex's free-flight scattering
+    events of the `alive` lanes, in a scene with spheres the `alive` lanes
+    whose closest hit is a sphere, and the BVH8 kernel's leaf visits and
     groups tested (on the card; the CPU's walk counts nothing).  On the
     card (ops/vertex.py:use_kernels) this is KV1, the walk, KV-FF (in a
     scene with volumes) and KV2 (ops/vertex.py:fused_vertex); its plain
@@ -137,16 +137,19 @@ def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
     """
     if vertex.use_kernels(pack, org, dirn):
         return vertex.fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel,
-                                   T_MIN, volume_hits, k1_counts)
+                                   T_MIN, counters)
     vertex.plain_calls["vertex_hit"] += 1
     vertex.plain_calls["vertex_shade"] += 1
     if pack.vol_kinds:
         vertex.plain_calls["free_flight"] += 1
     hit, stats = isect.intersect(pack, org, dirn, T_MIN, ctx, alive=alive, kernel=kernel,
                                  return_stats=True)
-    if volume_hits is not None and pack.vol_kinds:
-        scatter = hit.kind == sp.PRIM_VOLUME
-        volume_hits[0] += (scatter if alive is None else scatter & alive).sum()
+    if counters is not None:
+        for row, kind, present in ((vertex.ROW_VOLUME, sp.PRIM_VOLUME, pack.vol_kinds),
+                                   (vertex.ROW_SPHERE, sp.PRIM_SPHERE, pack.sph_center.shape[0])):
+            if present:
+                on = hit.kind == kind
+                counters[row, 0] += (on if alive is None else on & alive).sum()
     return (*shade_hits(pack, static, org, dirn, hit, ctx, light_bias), stats)
 
 

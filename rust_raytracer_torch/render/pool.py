@@ -193,16 +193,13 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
     eager there too, as on the CPU: the reference the graphed step is held
     against.
 
-    `step.volume_counters` holds each shard's free-flight counter: a
-    (vertex.VOLUME_SLOTS,) int64 tensor on its device, read as its sum,
-    that the step owns (a graph's static buffer), to which, in a scene with
-    volumes, every step adds the scattering events of its live lanes (the
-    shading kernel's one atomic a warp, no launch of its own); a scene
-    without volumes leaves it alone.  `step.k1_counters` holds each shard's
-    (2,) int64 counter of the BVH8 kernel, to which every step on the card
-    that runs it adds the walk's leaf visits and groups tested (the
-    kernel's atomics, no launch of its own).  `run_pool` zeroes both at a
-    render's start and reads them at its end."""
+    `step.counters` holds each shard's counters (vertex.new_counters, on
+    its device), which the step owns (a graph's static buffer) and adds to
+    with no launch of its own (the kernels' atomics, one a warp): in a
+    scene with volumes the scattering events of its live lanes, in a scene
+    with spheres its live lanes whose closest hit is a sphere, and on the
+    card the BVH8 walk's leaf visits and groups tested.  `run_pool`
+    zeroes them at a render's start and reads them at its end."""
     total = int(total)
     if mesh is None:
         parts = [(pack.device, 0, total)]
@@ -210,15 +207,13 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
         parts = [(dev, *_shard_quota(mesh.first + i, mesh.n_shards, total))
                  for i, dev in enumerate(mesh.devices)]
     replica = pmesh.replicas(pack)
-    local_steps, counters, k1_counters = [], [], []
+    local_steps, counters = [], []
     for dev, job_base, quota in parts:
         vertex.prepare(replica(dev), static, camera)
         fn = _local_step(static, camera, spp, seed, kernel, job_base, quota, dev)
-        counters.append(fn.volume_hits)
-        k1_counters.append(fn.k1_counts)
+        counters.append(fn.counters)
         if graph and graphs.applies(dev, kernel, pack):
-            fn = graphs.GraphedStep(
-                fn, counters=((fn.volume_hits,) if pack.vol_kinds else ()) + (fn.k1_counts,))
+            fn = graphs.GraphedStep(fn, counters=(fn.counters,))
         local_steps.append(fn)
 
     if mesh is None:
@@ -235,8 +230,7 @@ def make_step(pack, static, camera, total: int, spp: int, seed,
                                                                     strict=True))
 
     step.shard_steps = tuple(local_steps)
-    step.volume_counters = tuple(counters)
-    step.k1_counters = tuple(k1_counters)
+    step.counters = tuple(counters)
     return step
 
 
@@ -244,23 +238,19 @@ def _local_step(static, camera, spp: int, seed, kernel: str, job_base: int, quot
                 device=None):
     """The step of one shard's lanes (the reference's step_local): it issues
     jobs job_base + [0, quota) of the flat grid, counting them in its
-    next_flat (0-d).  The one-device step is job_base 0, quota total.  In
-    a scene with volumes it adds the scattering events of its live lanes to
-    `step.volume_hits`, a (vertex.VOLUME_SLOTS,) int64 tensor on `device`
-    (torch's default device if None) read as its sum; on the card the BVH8
-    kernel adds its leaf visits and groups tested to `step.k1_counts`, a
-    (2,) int64 tensor on `device`."""
+    next_flat (0-d).  The one-device step is job_base 0, quota total.  It
+    adds to `step.counters` (vertex.new_counters on `device`, torch's
+    default device if None) as integrator.shade_vertex says."""
     w = camera.image_width
     max_depth = camera.max_depth
     light_bias = camera.light_bias
-    volume_hits = torch.zeros(vertex.VOLUME_SLOTS, dtype=torch.int64, device=device)
-    k1_counts = torch.zeros(2, dtype=torch.int64, device=device)
+    counters = vertex.new_counters(device)
 
     def step(pack, s: PoolState) -> PoolState:
         ctx = vrng.Ctx(pixel=s.pixel, sample=s.sample, bounce=s.bounce, seed=seed)
         emission, weight, new_dir, ended, pos, stats = integrator.shade_vertex(
             pack, static, s.org, s.dirn, ctx, light_bias, s.active, kernel=kernel,
-            volume_hits=volume_hits if pack.vol_kinds else None, k1_counts=k1_counts)
+            counters=counters)
         if vertex.use_kernels(pack, s.org, s.dirn):
             out = kernel_tail(s, emission, weight, new_dir, ended, pos, stats["wf_overflow"])
         else:
@@ -300,8 +290,7 @@ def _local_step(static, camera, spp: int, seed, kernel: str, job_base: int, quot
                           stable=True).indices
         return refill_plain(s, perm, lanes, wf_overflow, camera, quota, job_base, spp, seed)
 
-    step.volume_hits = volume_hits
-    step.k1_counts = k1_counts
+    step.counters = counters
     return step
 
 
@@ -410,18 +399,11 @@ def shard_sums(mesh: Optional[pmesh.Mesh], state, fields) -> tuple:
     return _process_sums(mesh, [sum(col) for col in cols])
 
 
-def volume_scatters(mesh: Optional[pmesh.Mesh], counters) -> int:
-    """The sum of make_step's free-flight `counters` over this process's
-    shards and the mesh's processes, a host int: one small read a shard."""
-    return _process_sums(mesh, [sum(int(c.sum()) for c in counters)])[0]
-
-
-def k1_sums(mesh: Optional[pmesh.Mesh], counters) -> tuple:
-    """(leaf visits, groups tested): make_step's `k1_counters` summed over
-    this process's shards and the mesh's processes, host ints: one small
-    read a shard."""
-    reads = [c.tolist() for c in counters]
-    return _process_sums(mesh, [sum(r[k] for r in reads) for k in range(2)])
+def counter_sums(mesh: Optional[pmesh.Mesh], counters) -> dict:
+    """vertex.counter_values of make_step's `counters`, summed over this
+    process's shards and the mesh's processes: one small read a shard."""
+    values = vertex.counter_values(counters)
+    return dict(zip(values, _process_sums(mesh, list(values.values()))))
 
 
 def sum_planes(mesh: pmesh.Mesh, state: ShardedState, device) -> torch.Tensor:
@@ -496,7 +478,8 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     steps, the live lanes, the jobs issued and the wavefront overflow
     packets out of all 8-lane packets traced, as the reference's pool
     does, in a scene with volumes the render's free-flight scattering
-    events (`volume_hits`), and the BVH8 kernel's leaf visits and groups
+    events (`volume_hits`), in a scene with spheres the lane bounces whose
+    closest hit is a sphere (`sphere_hits`), and the BVH8 kernel's leaf visits and groups
     tested (`k1_leaf_visits`, `k1_groups_tested`): the step's counters,
     zeroed here and read once the loop has ended.  With `mesh`, n_lanes
     (a multiple of the shard count) is the global pool, of which this
@@ -509,10 +492,8 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     state = init_pool(n_lanes, n_pixels, device, dtype, mesh)
     if step is None:
         step = make_step(pack, static, camera, total, spp, seed, kernel=kernel, mesh=mesh)
-    counters = (getattr(step, "volume_counters", ())
-                if metrics is not None and pack.vol_kinds else ())
-    k1_counters = getattr(step, "k1_counters", ()) if metrics is not None else ()
-    for c in counters + k1_counters:
+    counters = getattr(step, "counters", ()) if metrics is not None else ()
+    for c in counters:
         c.zero_()
 
     def on_poll(state, done_steps, issued, n_active, overflow):
@@ -527,7 +508,9 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
                          max_pool_steps(total, n_lanes, camera.max_depth, n_shards),
                          on_poll=on_poll, mesh=mesh)
     if counters:
-        metrics.volume_hits = volume_scatters(mesh, counters)
-    if k1_counters:
-        metrics.k1_leaf_visits, metrics.k1_groups_tested = k1_sums(mesh, k1_counters)
+        sums = counter_sums(mesh, counters)
+        if not pack.sph_center.shape[0]:
+            del sums["sphere_hits"]
+        for name, value in sums.items():
+            setattr(metrics, name, value)
     return state

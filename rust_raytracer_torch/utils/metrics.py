@@ -58,6 +58,10 @@ class RenderMetrics:
     # step's counter (on the card the shading kernel's), read when the
     # render's loop has ended; 0 in a scene without volumes
     volume_hits: int = 0
+    # lane bounces whose closest hit is a sphere, of live lanes: the pool
+    # step's counter (on the card the shading kernel's), read when the
+    # render's loop has ended; None in a scene without spheres
+    sphere_hits: Optional[int] = None
     # the BVH8 kernel's leaf visits and the groups of 32 slots it tested
     # there (of 4 a visit): the pool step's counter, on the card, read when
     # the render's loop has ended; 0 on the CPU and for the other walks
@@ -92,6 +96,8 @@ class RenderMetrics:
         }
         if self.volume_hits:
             out["volume_hits"] = self.volume_hits
+        if self.sphere_hits is not None:
+            out["sphere_hits"] = self.sphere_hits
         if self.k1_leaf_visits:
             out["k1_leaf_visits"] = self.k1_leaf_visits
             out["k1_groups_tested"] = self.k1_groups_tested

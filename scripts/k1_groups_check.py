@@ -30,13 +30,14 @@ plain walk, so a CPU run checks the plumbing, not the kernel.
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
 sys.modules["jax"] = None  # the port runs without JAX
 
 import torch  # noqa: E402
+
+from in_turns import card, run_in_turns, this_over_other  # noqa: E402
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "build", "k1_groups")
@@ -67,14 +68,6 @@ def build_scene(small):
             lights=[light], config=dict(scene.config))
     conf = cfg.merge_scene_config(scene.config, {"output_width": 64 if small else W})
     return scene, camera_from_config(conf, cfg.RenderConfig(samples_per_pixel=1, max_depth=20))
-
-
-def card():
-    if not torch.cuda.is_available():
-        return "cpu"
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps, dev):
@@ -138,15 +131,6 @@ def worker(args):
         ms = time_ms(lambda: bvh8.intersect_triangles_bvh8(pack, o, d, None, tm), args.reps, dev)
         out[tag] = {"t": t.cpu(), "slot": slot.cpu(), "ms": ms, "counts": counts.tolist()}
     torch.save(out, args.out)
-
-
-def run_worker(root, rays_path, out_path, args):
-    cmd = [sys.executable, os.path.abspath(__file__), "--worker", root, "--rays", rays_path,
-           "--out", out_path, "--device", args.device, "--reps", str(args.reps)]
-    if args.small:
-        cmd.append("--small")
-    subprocess.run(cmd, check=True)
-    return torch.load(out_path)
 
 
 def graph_equal(bvh8, pack, o, d, tm, dev):
@@ -231,13 +215,9 @@ def main():
               f"{walk['groups']} ({share:.2%} of 4 a visit), bytes a leaf visit "
               f"{cs.leaf_bytes(walk):.0f}", flush=True)
 
-    here = HERE
-    order = [("other", args.other), ("this", here), ("this", here), ("other", args.other)]
-    runs = []
-    for k, (side, root) in enumerate(order):
-        if root is None:
-            continue
-        runs.append((side, run_worker(root, rays_path, os.path.join(OUT, f"run{k}.pt"), args)))
+    runs = run_in_turns(__file__, HERE, args.other, OUT,
+                        ["--rays", rays_path, "--device", args.device, "--reps", str(args.reps)]
+                        + (["--small"] if args.small else []))
     first = runs[0][1]
     for side, run in runs:
         for tag in SETS:
@@ -252,8 +232,7 @@ def main():
             ms[side].append(run[tag]["ms"])
         result["sets"][tag]["ms"] = ms
         if "other" in ms:
-            result["sets"][tag]["this_over_other"] = (sum(ms["this"]) / len(ms["this"])) / (
-                sum(ms["other"]) / len(ms["other"]))
+            result["sets"][tag]["this_over_other"] = this_over_other(ms)
         print(f"time {tag}: {json.dumps(ms)} ms (CUDA events, mean of {args.reps}); (t, slot) "
               f"of every run equal bit for bit", flush=True)
     print(json.dumps(result), flush=True)

@@ -39,10 +39,11 @@ def counter_check(torch):
     orig = vertex.shade_hits
 
     def shade_hits(pack, static, org, dirn, ctx, light_bias, hits, merged=None, alive=None,
-                   volume_hits=None):
+                   *counters, **named):
         if merged is not None and alive is not None:
             seen.append(((merged[1] == sp.PRIM_VOLUME) & alive).sum())
-        return orig(pack, static, org, dirn, ctx, light_bias, hits, merged, alive, volume_hits)
+        return orig(pack, static, org, dirn, ctx, light_bias, hits, merged, alive, *counters,
+                    **named)
 
     out = {}
     for graph in (False, True):

@@ -19,6 +19,7 @@ import torch
 
 from rust_raytracer_torch.ops import bvh8 as tbvh8
 from rust_raytracer_torch.ops import threaded
+from rust_raytracer_torch.ops import vertex
 from rust_raytracer_torch.scene import compiler as tcompiler
 from rust_raytracer_torch.scene import graph as tg
 from rust_raytracer_torch.scene import pack as tpack
@@ -253,10 +254,10 @@ def test_leaf_tables_order_and_empty_scene():
 
 
 def test_pool_owns_the_k1_counter():
-    """make_step gives each shard a (2,) int64 K1 counter; run_pool zeroes it
-    and reads it into RenderMetrics once its loop has ended.  On the CPU the
-    walk is the plain one: it counts nothing, and the summary leaves the
-    counts out."""
+    """make_step gives each shard its counters, whose K1 row the walk adds to;
+    run_pool zeroes them and reads the row into RenderMetrics once its loop
+    has ended.  On the CPU the walk is the plain one: it counts nothing, and
+    the summary leaves the counts out."""
     from rust_raytracer_torch.render import pool
     from rust_raytracer_torch.render.camera import Camera
 
@@ -266,17 +267,23 @@ def test_pool_owns_the_k1_counter():
                     position=(278.0, 278.0, -800.0), look_at=(278.0, 278.0, 0.0),
                     focal_length=35.0)
     step = pool.make_step(pack, static, camera, 64, 1, 0)
-    (counter,) = step.k1_counters
-    assert counter.dtype == torch.int64 and tuple(counter.shape) == (2,)
+    (counter,) = step.counters
+    assert counter.dtype == torch.int64
+    assert tuple(counter.shape) == (vertex.COUNTER_ROWS, vertex.VOLUME_SLOTS)
     counter.fill_(7)
     metrics = RenderMetrics()
     pool.run_pool(pack, static, camera, 64, 1, 64, "cpu", metrics=metrics, step=step)
-    assert counter.tolist() == [0, 0]
+    assert counter[vertex.ROW_K1].tolist() == [0] * vertex.VOLUME_SLOTS
     assert metrics.k1_leaf_visits == metrics.k1_groups_tested == 0
     assert "k1_leaf_visits" not in metrics.summary()
     metrics.k1_leaf_visits, metrics.k1_groups_tested = 10, 23
     assert metrics.summary()["k1_groups_tested"] == 23
-    assert pool.k1_sums(None, (torch.tensor([3, 5]), torch.tensor([4, 6]))) == (7, 11)
+    a, b = vertex.new_counters(), vertex.new_counters()
+    a[vertex.ROW_K1, :2] = torch.tensor([3, 5])
+    b[vertex.ROW_K1, :2] = torch.tensor([4, 6])
+    a[vertex.ROW_VOLUME, 4], b[vertex.ROW_SPHERE, 9] = 2, 8
+    assert pool.counter_sums(None, (a, b)) == {
+        "volume_hits": 2, "sphere_hits": 8, "k1_leaf_visits": 7, "k1_groups_tested": 11}
 
 
 def _reader(name):

@@ -105,9 +105,9 @@ def test_fused_vertex_launches_free_flight_between_hit_and_shade(monkeypatch, na
     monkeypatch.setattr(vertex, "_launch", rec)
     _walk_recorded(monkeypatch, rec)
     before = dict(vertex.launches)
-    counter = torch.zeros(vertex.VOLUME_SLOTS, dtype=torch.int64)
+    counters = vertex.new_counters()
     vertex.fused_vertex(pack, static, org, dirn, ctx, 0.25, torch.ones(256, dtype=torch.bool),
-                        "auto", tint.T_MIN, counter)
+                        "auto", tint.T_MIN, counters)
     assert rec.names() == ["rrt_vertex_hit", "walk", "rrt_free_flight", "rrt_vertex_shade"]
     assert {k: vertex.launches[k] - before[k] for k in vertex.KERNELS} == {
         **dict.fromkeys(vertex.KERNELS, 0), "vertex_hit": 1, "free_flight": 1,
@@ -118,6 +118,9 @@ def test_fused_vertex_launches_free_flight_between_hit_and_shade(monkeypatch, na
     # t_c, i_c, kind_in, ...; merged: t_a = t, i_a = prim, kind_in = kind
     assert shade[5] is t and shade[6] is prim and shade[11] is kind
     assert all(x is None for x in shade[7:11])
+    # KV2's counter pointers: the counters' volume row, no sphere row (no sphere)
+    assert shade[17].data_ptr() == counters[vertex.ROW_VOLUME].data_ptr()
+    assert shade[18] is None
     # KV-FF reads KV1's four hits and the walk's two
     hit_out = rec.calls[0][1][-5:-1]
     assert all(a is b for a, b in zip(ff[4:8], hit_out))

@@ -18,7 +18,6 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import perfbench.run as run
 from perfbench.core import check, spec
@@ -32,6 +31,7 @@ from perfbench.tests.small import small_cell
 from rust_raytracer_torch import models as tmodels
 from rust_raytracer_torch.core import rng as trng
 from rust_raytracer_torch.ops import intersect as tisect
+from rust_raytracer_torch.ops import vertex as tvertex
 from rust_raytracer_torch.parallel import mesh as tmesh
 from rust_raytracer_torch.render import graphs as tgraphs
 from rust_raytracer_torch.render import pool as tpool
@@ -319,39 +319,25 @@ def test_volume_hits_is_the_same_over_lane_counts_and_shards():
     assert counts[0] == counts[1] == counts[2] > 0
 
 
-class _Touches(TorchDispatchMode):
-    """Records the ops that take `target` as an argument."""
-
-    def __init__(self, target):
-        super().__init__()
-        self.target, self.ops = target, []
-
-    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
-        flat = list(args) + list((kwargs or {}).values())
-        if any(a is self.target for a in flat):
-            self.ops.append(str(func))
-        return func(*args, **(kwargs or {}))
-
-
 def test_scene_without_volumes_leaves_the_counter_out():
-    """In a scene without volumes no op of a step or of a render takes the
-    step's counter, the pool state has its fields of before, and a render
-    records no volume_hits."""
+    """In a scene without volumes a step adds nothing to its counters' volume
+    row, the pool state has its fields of before, and a render records no
+    volume_hits."""
     cam = _camera()
     pack, static = tcompiler.compile_scene(tmodels.build("cornell"), "cpu")
     assert not pack.vol_kinds
     n_pixels = WIDTH * WIDTH
     step = tpool.make_step(pack, static, cam, n_pixels * SPP, SPP, 0)
-    (counter,) = step.volume_counters
+    (counters,) = step.counters
     state = tpool.init_state(LANES, n_pixels, "cpu")
     assert tpool.PoolState._fields[8:] == ("accum", "next_flat", "overflow")
     metrics = RenderMetrics(n_pixels=n_pixels, spp=SPP, max_depth=20)
-    touches = _Touches(counter)
-    with touches:
-        step(pack, state)
-        tpool.run_pool(pack, static, cam, n_pixels, SPP, LANES, "cpu", metrics=metrics,
-                       step=step)
-    assert touches.ops == [] and int(counter.sum()) == 0
+    counters[tvertex.ROW_VOLUME] = 7
+    for _ in range(3):
+        state = step(pack, state)
+    assert counters[tvertex.ROW_VOLUME].tolist() == [7] * tvertex.VOLUME_SLOTS
+    tpool.run_pool(pack, static, cam, n_pixels, SPP, LANES, "cpu", metrics=metrics, step=step)
+    assert int(counters[tvertex.ROW_VOLUME].sum()) == 0
     assert metrics.volume_hits == 0 and "volume_hits" not in metrics.summary()
 
 
@@ -364,12 +350,13 @@ def test_volume_hits_graphed_equals_eager():
     eager = tpool.make_step(pack, static, cam, n_pixels * SPP, SPP, 3)
     inner = tpool.make_step(pack, static, cam, n_pixels * SPP, SPP, 3)
     capture = lambda body, device: types.SimpleNamespace(replay=body)  # noqa: E731
-    graphed = tgraphs.GraphedStep(inner, capture=capture, counters=inner.volume_counters)
+    graphed = tgraphs.GraphedStep(inner, capture=capture, counters=inner.counters)
     a = b = tpool.init_state(LANES, n_pixels, "cpu")
+    row = lambda step: int(step.counters[0][tvertex.ROW_VOLUME].sum())  # noqa: E731
     for _ in range(6):
         a, b = eager(pack, a), graphed(pack, b)
-        assert int(eager.volume_counters[0].sum()) == int(inner.volume_counters[0].sum())
-    assert int(eager.volume_counters[0].sum()) > 0
+        assert row(eager) == row(inner)
+    assert row(eager) > 0
 
 
 # ---------------------------------------------------------------- readers

@@ -14,8 +14,10 @@ scripts/vertex_parity.py hold them against their plain versions.  Here:
   table layout (the layout the shading kernel reads) equals the port's
   eval_program / lights_* (atol and rtol 1e-6) and the JAX package's (at
   tests/test_torch_shade.py's rtol 1e-5, atol 1e-6);
-- the texture program bound: every builtin's program fits MAX_NODES, a
-  longer one raises ValueError;
+- the texture closure bound: every builtin's closures fit MAX_NODES, a
+  program of any length builds, a closure longer than MAX_NODES raises
+  ValueError (tests/test_torch_monkey_cell.py holds the closures against
+  eval_program);
 - the CPU route: shade_vertex, bounce_step and the pool step equal the code
   they replaced bit for bit (copies of it below), and count plain calls;
 - no fallback: a kernel library that fails to load raises out of every
@@ -129,55 +131,77 @@ def perlin(p, grad, perm):
     return acc
 
 
+def node_value(t: Tables, k, kids, uv, pos):
+    """Node k's value at one lane from the tables, `kids` the values of its
+    children c0 c1 c2 (as many as it has)."""
+    r = t.irows(vertex.H_I_NODE, t.h(vertex.H_NNODE), vertex.NODE_I)[k]
+    scale = F32(t.frows(vertex.H_F_NODE, t.h(vertex.H_NNODE), vertex.NODE_F)[k, 0])
+    kind = r[0]
+    if kind == ttex.CONSTANT:
+        v = t.frows(vertex.H_F_CONST, k + 1, 3)[k]
+    elif kind == ttex.CHECKER:
+        iu = int(min(max(F32(uv[0] * F32(2)) / scale, F32(0)), F32(2.0**31)))
+        iv = int(min(max(F32(uv[1] * F32(2)) / scale, F32(0)), F32(2.0**31)))
+        v = kids[0] if (iu + iv) % 2 == 0 else kids[1]
+    elif kind == ttex.CHECKER_SOLID:
+        ijk = np.floor((pos / scale).astype(F32)).astype(np.int64)
+        v = kids[0] if int(ijk.sum()) % 2 == 0 else kids[1]
+    elif kind == ttex.IMAGE:
+        h, w = int(r[5]), int(r[6])
+        px = t.f[r[4]:r[4] + h * w * 3].reshape(h, w, 3)
+        u, vv = uv
+        if r[7]:
+            u, vv = min(max(u, F32(0)), F32(1)), min(max(vv, F32(0)), F32(1))
+        else:
+            u, vv = F32(u - np.floor(u)), F32(vv - np.floor(vv))
+        v = px[int(F32(vv * F32(h - 0.001))), int(F32(u * F32(w - 0.001)))]
+    elif kind == ttex.LERP:
+        tt = kids[2][0]
+        v = kids[0] * (F32(1) - tt) + kids[1] * tt
+    elif kind == ttex.NOISE_SOLID:
+        grad = t.f[r[4]:r[4] + 256 * 3].reshape(256, 3)
+        perm = t.i[r[5]:r[5] + 3 * 256]
+        ps = (pos * scale).astype(F32)
+        acc, weight, pp = F32(0), F32(1), ps
+        for _ in range(r[6]):
+            acc = F32(acc + weight * perlin(pp, grad, perm))
+            weight = F32(weight * F32(0.5))
+            pp = (pp * F32(2)).astype(F32)
+        turb = abs(acc)
+        s = F32(0.5) * (F32(1) + np.sin(F32(ps[2] + F32(10) * turb))) if r[7] == 0 else turb
+        v = f3(s, s, s)
+    elif kind == ttex.CHANNEL:
+        v = f3(*[kids[0][r[4]]] * 3)
+    else:
+        v = f3(uv[0], uv[1], 0.5)
+    return np.asarray(v, F32)
+
+
 def read_program(t: Tables, uv, pos):
     """The program's (nodes, 3) values at one lane, from the tables alone."""
     nn = t.h(vertex.H_NNODE)
-    const = t.frows(vertex.H_F_CONST, nn, 3)
-    nodes_f = t.frows(vertex.H_F_NODE, nn, vertex.NODE_F)
     nodes_i = t.irows(vertex.H_I_NODE, nn, vertex.NODE_I)
     val = []
     for k in range(nn):
-        r, scale = nodes_i[k], F32(nodes_f[k, 0])
-        kind = r[0]
-        if kind == ttex.CONSTANT:
-            v = const[k]
-        elif kind == ttex.CHECKER:
-            iu = int(min(max(F32(uv[0] * F32(2)) / scale, F32(0)), F32(2.0**31)))
-            iv = int(min(max(F32(uv[1] * F32(2)) / scale, F32(0)), F32(2.0**31)))
-            v = val[r[1]] if (iu + iv) % 2 == 0 else val[r[2]]
-        elif kind == ttex.CHECKER_SOLID:
-            ijk = np.floor((pos / scale).astype(F32)).astype(np.int64)
-            v = val[r[1]] if int(ijk.sum()) % 2 == 0 else val[r[2]]
-        elif kind == ttex.IMAGE:
-            h, w = int(r[5]), int(r[6])
-            px = t.f[r[4]:r[4] + h * w * 3].reshape(h, w, 3)
-            u, vv = uv
-            if r[7]:
-                u, vv = min(max(u, F32(0)), F32(1)), min(max(vv, F32(0)), F32(1))
-            else:
-                u, vv = F32(u - np.floor(u)), F32(vv - np.floor(vv))
-            v = px[int(F32(vv * F32(h - 0.001))), int(F32(u * F32(w - 0.001)))]
-        elif kind == ttex.LERP:
-            tt = val[r[3]][0]
-            v = val[r[1]] * (F32(1) - tt) + val[r[2]] * tt
-        elif kind == ttex.NOISE_SOLID:
-            grad = t.f[r[4]:r[4] + 256 * 3].reshape(256, 3)
-            perm = t.i[r[5]:r[5] + 3 * 256]
-            ps = (pos * scale).astype(F32)
-            acc, weight, pp = F32(0), F32(1), ps
-            for _ in range(r[6]):
-                acc = F32(acc + weight * perlin(pp, grad, perm))
-                weight = F32(weight * F32(0.5))
-                pp = (pp * F32(2)).astype(F32)
-            turb = abs(acc)
-            s = F32(0.5) * (F32(1) + np.sin(F32(ps[2] + F32(10) * turb))) if r[7] == 0 else turb
-            v = f3(s, s, s)
-        elif kind == ttex.CHANNEL:
-            v = f3(*[val[r[1]][r[4]]] * 3)
-        else:
-            v = f3(uv[0], uv[1], 0.5)
-        val.append(np.asarray(v, F32))
+        kids = [val[c] if c < k else None for c in nodes_i[k, 1:4]]
+        val.append(node_value(t, k, kids, uv, pos))
     return np.stack(val) if val else np.zeros((1, 3), F32)
+
+
+def read_closure(t: Tables, key, uv, pos):
+    """(albedo, roughness, normal map or None, emission or None) of shading
+    key `key` at one lane, as the shading kernel reads them: only the nodes
+    of the key's closure, each child at its position in the closure."""
+    n_keys = t.h(vertex.H_NMAT) + t.h(vertex.H_NSKY) + t.h(vertex.H_NSUN)
+    row = t.irows(vertex.H_I_CLOS, n_keys, vertex.CLOS_I)[key]
+    entries = t.i[row[0]:row[0] + row[1] * vertex.CLOS_E].reshape(-1, vertex.CLOS_E)
+    val = []
+    for e in entries:
+        kids = [val[p] if p < len(val) else None for p in e[1:4]]
+        val.append(node_value(t, e[0], kids, uv, pos))
+    if not val:
+        val = [np.zeros(3, F32)]
+    return tuple(None if p < 0 else val[p] for p in row[2:6])
 
 
 def sphere_t(o, d, c, r):
@@ -306,15 +330,12 @@ def check_tables(pack, static):
     nm = counts[vertex.H_NMAT]
     mi = t.irows(vertex.H_I_MAT, nm, vertex.MAT_I)
     mf = t.frows(vertex.H_F_MAT, nm, vertex.MAT_F)
-    for k, f in enumerate(("mat_type", "mat_albedo_tex", "mat_rough_tex", "mat_normal_tex")):
-        np.testing.assert_array_equal(mi[:, k], host(getattr(pack, f)))
+    np.testing.assert_array_equal(mi[:, 0], host(pack.mat_type))
     np.testing.assert_array_equal(mf[:, 0], host(pack.mat_inv_ior))
     np.testing.assert_array_equal(mf[:, 1], host(pack.mat_ior))
     assert [tuple(r) for r in t.lights()] == [tuple(x) for x in static.light_list]
     np.testing.assert_array_equal(t.irows(vertex.H_I_VOL, counts[vertex.H_NVOL], 1)[:, 0],
                                   host(pack.vol_mat))
-    np.testing.assert_array_equal(t.irows(vertex.H_I_SKY, counts[vertex.H_NSKY], 1)[:, 0],
-                                  host(pack.sky_tex))
     np.testing.assert_array_equal(t.frows(vertex.H_F_SUN, counts[vertex.H_NSUN], 3),
                                   host(pack.sun_dir))
     np.testing.assert_array_equal(t.frows(vertex.H_F_BG, 1, 3)[0], host(pack.background))
@@ -325,14 +346,35 @@ def check_tables(pack, static):
         if node.kind == ttex.CONSTANT:
             np.testing.assert_array_equal(t.frows(vertex.H_F_CONST, k + 1, 3)[k],
                                           host(pack.tex_const)[k])
+    # every texture root (materials', skies', suns'), through the closure
+    # rows, KV2's only record of them
+    n_keys = nm + counts[vertex.H_NSKY] + counts[vertex.H_NSUN]
+    rows = t.irows(vertex.H_I_CLOS, n_keys, vertex.CLOS_I)
+    for key in range(n_keys):
+        nodes = t.i[rows[key, 0]:rows[key, 0] + rows[key, 1] * vertex.CLOS_E][::vertex.CLOS_E]
+        got = [None if p < 0 else int(nodes[p]) if len(nodes) else 0 for p in rows[key, 2:6]]
+        assert got == list(pack_roots(pack, key)), key
     return t
+
+
+def pack_roots(pack, key):
+    """(albedo, roughness, normal map or None, emission or None) node ids of
+    shading key `key` from the pack: a material, then each sky, then each
+    sun (whose lanes read material 0's roots)."""
+    nmat, nsky = pack.mat_type.shape[0], pack.sky_tex.shape[0]
+    m = key if key < nmat else 0
+    normal = int(pack.mat_normal_tex[m])
+    emit = (None if key < nmat else int(pack.sky_tex[key - nmat]) if key < nmat + nsky
+            else int(pack.sun_tex[key - nmat - nsky]))
+    return (int(pack.mat_albedo_tex[m]), int(pack.mat_rough_tex[m]),
+            normal if normal >= 0 else None, emit)
 
 
 @pytest.mark.parametrize("name", BUILTINS)
 def test_tables_builtin(name):
     pack, static = tcompiler.compile_scene(models.build(name), "cpu")
     check_tables(pack, static)
-    assert len(static.tex_program) <= vertex.MAX_NODES
+    assert max(len(nodes) for nodes, _ in closures_of(pack, static)) <= vertex.MAX_NODES
 
 
 def test_tables_texture_and_fog(texture_pack):
@@ -345,16 +387,35 @@ def test_tables_texture_and_fog(texture_pack):
     assert t.h(vertex.H_NVOL) == 1
 
 
+def closures_of(pack, static):
+    return vertex.texture_closures(static.tex_program, *(getattr(pack, f).numpy() for f in (
+        "mat_albedo_tex", "mat_rough_tex", "mat_normal_tex", "sky_tex", "sun_tex")))
+
+
 def test_node_bound_raises():
-    longest = max(len(tcompiler.compile_scene(models.build(n), "cpu")[1].tex_program)
-                  for n in ("cornell", "test", "tonemap_test"))
+    """MAX_NODES bounds one shading key's closure, not the program: every
+    builtin's closures fit; a program grown by MAX_NODES + 1 nodes that no
+    root reaches builds its tables; one whose material 0 albedo reaches
+    more than MAX_NODES nodes raises ValueError."""
+    longest = max(len(nodes) for n in ("cornell", "test", "tonemap_test")
+                  for nodes, _ in closures_of(*tcompiler.compile_scene(models.build(n), "cpu")))
     assert longest <= vertex.MAX_NODES
     pack, static = tcompiler.compile_scene(models.build("test"), "cpu")
-    extra = vertex.MAX_NODES + 1 - len(static.tex_program)
-    long = dataclasses.replace(static, tex_program=static.tex_program
-                               + (ttex.TexNode(ttex.CONSTANT),) * extra)
+    n = len(static.tex_program)
+    extra = (ttex.TexNode(ttex.CONSTANT),) * (vertex.MAX_NODES + 1)
+    t = Tables(pack, dataclasses.replace(static, tex_program=static.tex_program + extra))
+    assert t.h(vertex.H_NNODE) == n + vertex.MAX_NODES + 1
+    chain = [ttex.TexNode(ttex.CONSTANT)]
+    for k in range(vertex.MAX_NODES):
+        chain.append(ttex.TexNode(ttex.CHECKER, children=(n + k, n), scale=0.5))
+    deep = dataclasses.replace(static, tex_program=static.tex_program + tuple(chain))
+    albedo = pack.mat_albedo_tex.clone()
+    albedo[0] = n + vertex.MAX_NODES
+    assert len(closures_of(pack._replace(mat_albedo_tex=albedo), deep)[0][0]) \
+        > vertex.MAX_NODES
     with pytest.raises(ValueError, match="at most"):
-        vertex.vertex_tables(pack, long)
+        vertex.vertex_tables(pack._replace(mat_albedo_tex=albedo), deep)
+    vertex.vertex_tables(pack, deep)   # the chain reached by no root builds
 
 
 def test_reader_texture_program(texture_pack):
