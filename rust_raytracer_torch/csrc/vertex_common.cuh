@@ -109,6 +109,7 @@ enum Header {
     H_NPROXY,
     H_F_SPH, H_F_PLN, H_F_SUN, H_F_MAT, H_F_PROXY, H_F_CONST, H_F_NODE, H_F_BG,
     H_I_SPH, H_I_PLN, H_I_VOL, H_I_MAT, H_I_LIGHT, H_I_NODE, H_F_VOL, H_I_VOLK, H_I_CLOS,
+    H_NBVH, H_F_BVH, H_I_BVH,
     HEADER = 32
 };
 // row widths: sphere center(3) radius inv(9) fwd(9) | mat; plane corner
@@ -127,6 +128,12 @@ enum Rows {
     LIGHT_I = 2, PROXY_F = 4, NODE_F = 1, NODE_I = 8, TRI_ATTR = 32, VOL_F = 16, VOL_I = 3,
     CLOS_I = 6, CLOS_E = 4
 };
+// the spheres' BVH (ops/vertex.py:sphere_bvh): a node's f32 row (at
+// H_F_BVH, float4-aligned) is lo(3) hi(3) ctr(3) beta gamma 0, its margin
+// for a ray from o beta |o - ctr|^2 + gamma; its i32 row (at H_I_BVH) the
+// children (left, right), or (-1 - first, count) of a leaf, whose sphere
+// ids are at H_I_BVH + BVH_I * H_NBVH + first in leaf order
+enum SphereBvh { BVH_F = 12, BVH_I = 2, BVH_STACK = 32 };
 // ops/texture.py node kinds, scene/pack.py ids
 enum TexKind { CONSTANT = 0, CHECKER, CHECKER_SOLID, IMAGE, LERP, NOISE_SOLID, CHANNEL,
                UV_DEBUG };

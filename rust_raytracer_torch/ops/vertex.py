@@ -3,8 +3,9 @@ reference's jitted step (its shading is elementwise work that
 rust_raytracer_tpu leaves to XLA outside any Pallas kernel), with the scene
 tables the kernels read.
 
-  KV1 csrc/vertex_hit.cu     closest sphere and plane hit, the triangle
-                             walk's t_max (0 on a dead lane)
+  KV1 csrc/vertex_hit.cu     closest sphere hit (a walk of the spheres'
+                             BVH) and plane hit, the triangle walk's
+                             t_max (0 on a dead lane)
   KV-FF csrc/free_flight.cu  after the walk, in a scene with volumes only:
                              the merge of the three hits, then each
                              volume's free flight -> (t, kind, prim)
@@ -33,7 +34,8 @@ A kernel that fails to build or launch raises; nothing falls back.
 flat device tables, f32 and i32, that KV1, KV-FF and KV2 interpret: a
 header of counts and offsets (csrc/vertex_common.cuh:Header), then the
 sphere, plane, sun-direction, material, proxy-light, light, volume rows
-(with each convex mesh boundary's triangles), the texture program's nodes
+(with each convex mesh boundary's triangles), the spheres' BVH that KV1
+walks (`sphere_bvh`), the texture program's nodes
 in topological order with their constants, the image and Perlin data at
 offsets, and the closure table: for each shading key (each material, then
 each sky and each sun, whose lanes also read material 0's roots) its
@@ -75,7 +77,7 @@ MAX_NODES = 32   # must match csrc/vertex_common.cuh:MAX_NODES
 (H_NS, H_AFFINE, H_NP, H_NT, H_NVOL, H_NSKY, H_NSUN, H_NMAT, H_NLIGHT, H_NNODE, H_NPROXY,
  H_F_SPH, H_F_PLN, H_F_SUN, H_F_MAT, H_F_PROXY, H_F_CONST, H_F_NODE, H_F_BG,
  H_I_SPH, H_I_PLN, H_I_VOL, H_I_MAT, H_I_LIGHT, H_I_NODE, H_F_VOL, H_I_VOLK,
- H_I_CLOS) = range(28)
+ H_I_CLOS, H_NBVH, H_F_BVH, H_I_BVH) = range(31)
 HEADER = 32
 # csrc/vertex_common.cuh:Rows
 SPH_F, SPH_I, PLN_F, PLN_I, SUN_F, MAT_F, MAT_I = 22, 1, 19, 2, 3, 2, 1
@@ -86,15 +88,31 @@ LIGHT_I, PROXY_F, NODE_F, NODE_I, VOL_F, VOL_I = 2, 4, 1, 8, 16, 3
 CLOS_I, CLOS_E = 6, 4
 # csrc/pool_refill.cu:Cam
 CAMERA_FLOATS = 20
+# The spheres' BVH (csrc/vertex_common.cuh:SphereBvh, keep in step): a
+# node's f32 row is its box lo, hi, the centre of the margin and the
+# margin's two coefficients (BVH_F, a float4-aligned row); its i32 row the
+# children (left, right), or (-1 - first, count) of a leaf, whose spheres'
+# ids follow the node rows in leaf order (at most LEAF_SPHERES a leaf);
+# BVH_STACK bounds the walk's depth.
+BVH_F, BVH_I, LEAF_SPHERES, BVH_STACK = 12, 2, 4, 32
+# The margin a lane widens a node's box by: MARGIN_EPS x (|o - ctr|^2 +
+# R^2) x 2 / r, for a ray from o, the node's centre ctr, R the farthest
+# sphere centre from it, r its spheres' least radius (affine: 1 /
+# (|fwd| |inv|^2)).  A computed root lies within ~14 eps |o - c|^2 / r of
+# its sphere (the discriminant's rounding, eps = 2^-24, near a tangent);
+# MARGIN_EPS is ~4.5x that.  Each sphere's own box is widened besides by
+# BOX_PAD of its largest coordinate and extent (16 ulps).
+MARGIN_EPS, BOX_PAD = 2.0 ** -18, 2.0 ** -20
 
 THREADS_KEY = 256   # csrc/lane_update.cu's block: one box a block
 VOLUME_SLOTS = 32   # csrc/vertex_shade.cu:VOL_SLOTS, the slots of a counter row
 # The rows of a pool step's counters, one (COUNTER_ROWS, VOLUME_SLOTS) int64
 # buffer (`new_counters`): KV2's free-flight scattering events and sphere
-# hits, each read as its row's sum, and K1's leaf visits and groups tested
-# in slots 0 and 1 of its row.
-ROW_VOLUME, ROW_SPHERE, ROW_K1 = 0, 1, 2
-COUNTER_ROWS = 3
+# hits, each read as its row's sum, K1's leaf visits and groups tested in
+# slots 0 and 1 of its row, and KV1's sphere-BVH node visits and sphere
+# tests in slots 0 and 1 of its row.
+ROW_VOLUME, ROW_SPHERE, ROW_K1, ROW_KV1 = 0, 1, 2, 3
+COUNTER_ROWS = 4
 
 
 class VertexTables(NamedTuple):
@@ -110,16 +128,20 @@ class _TableRows:
         self.nf, self.ni = 0, HEADER
         self.header = np.zeros(HEADER, np.int64)
 
-    def floats(self, a) -> int:
+    def floats(self, a, align: int = 1) -> int:
         a = np.asarray(a, np.float32).ravel()
-        off = self.nf
+        pad = -self.nf % align
+        self.f.append(np.zeros(pad, np.float32))
+        off = self.nf = self.nf + pad
         self.f.append(a)
         self.nf += a.size
         return off
 
-    def ints(self, a) -> int:
+    def ints(self, a, align: int = 1) -> int:
         a = np.asarray(a, np.int64).ravel()
-        off = self.ni
+        pad = -self.ni % align
+        self.i.append(np.zeros(pad, np.int64))
+        off = self.ni = self.ni + pad
         self.i.append(a)
         self.ni += a.size
         return off
@@ -152,6 +174,70 @@ def texture_closures(program, albedo, rough, normal, sky, sun) -> list:
     return [(reach(roots), roots) for roots in keys]
 
 
+def sphere_bvh(center, radius, inv=None, fwd=None):
+    """The spheres' BVH that KV1 walks, built from the float32 rows it
+    tests: (node_f (n, BVH_F) f32, node_i (n, BVH_I) int64, leaf ids (ns,)
+    int64), node 0 the root and the nodes in pre-order.  A node splits its
+    spheres at the median of their centres along the longest axis of the
+    centres' box (a stable sort) until a leaf holds at most LEAF_SPHERES;
+    at most that many spheres make one leaf, the loop over them all.  A
+    node's box holds its spheres' boxes, centre +- |radius| (an affine
+    sphere, `inv` and `fwd` given: +- the row norms of `fwd`), each
+    widened by BOX_PAD of its largest coordinate and extent, rounded
+    outward to f32; its margin coefficients (MARGIN_EPS) are rounded up.
+    Raises ValueError for a tree deeper than BVH_STACK."""
+    c = np.asarray(center, np.float64).reshape(-1, 3)
+    ns = c.shape[0]
+    if fwd is not None:
+        fwd, inv = np.asarray(fwd, np.float64), np.asarray(inv, np.float64)
+        ext = np.linalg.norm(fwd, axis=2)
+        r_eff = 1.0 / (np.linalg.norm(fwd, 2, axis=(1, 2))
+                       * np.linalg.norm(inv, 2, axis=(1, 2)) ** 2)
+    else:
+        r_eff = np.abs(np.asarray(radius, np.float64))
+        ext = np.repeat(r_eff[:, None], 3, axis=1)
+    pad = BOX_PAD * (np.abs(c).max(axis=1, initial=0.0) + ext.max(axis=1, initial=0.0))
+    box_lo, box_hi = c - ext - pad[:, None], c + ext + pad[:, None]
+    node_f, node_i, leaf = [], [], []
+
+    def down(x):
+        x32 = np.float32(x)
+        return np.where(x32 > x, np.nextafter(x32, np.float32(-np.inf)), x32)
+
+    def up(x):
+        x32 = np.float32(np.minimum(x, np.finfo(np.float32).max))
+        return np.where(x32 < x, np.nextafter(x32, np.float32(np.inf)), x32)
+
+    def build(ids, depth):
+        if depth > BVH_STACK:
+            raise ValueError(f"a sphere BVH deeper than {BVH_STACK} levels (ops/vertex.py:"
+                             f"BVH_STACK)")
+        k = len(node_f)
+        lo, hi = down(box_lo[ids].min(axis=0)), up(box_hi[ids].max(axis=0))
+        ctr = np.float32((lo.astype(np.float64) + hi) / 2)
+        far = np.linalg.norm(c[ids] - ctr, axis=1).max()
+        beta = 2.0 * MARGIN_EPS / max(r_eff[ids].min(), 1e-30)
+        row = np.zeros(BVH_F, np.float32)
+        row[0:3], row[3:6], row[6:9] = lo, hi, ctr
+        row[9], row[10] = up(beta), up(beta * far * far)
+        node_f.append(row)
+        node_i.append([0, 0])
+        if len(ids) <= LEAF_SPHERES:
+            node_i[k] = [-1 - len(leaf), len(ids)]
+            leaf.extend(ids)
+            return k
+        span = c[ids].max(axis=0) - c[ids].min(axis=0)
+        order = ids[np.argsort(c[ids, int(np.argmax(span))], kind="stable")]
+        mid = len(ids) // 2
+        node_i[k] = [build(order[:mid], depth + 1), build(order[mid:], depth + 1)]
+        return k
+
+    if ns:
+        build(np.arange(ns), 1)
+    return (np.asarray(node_f, np.float32).reshape(-1, BVH_F),
+            np.asarray(node_i, np.int64).reshape(-1, BVH_I), np.asarray(leaf, np.int64))
+
+
 def table_arrays(pack, static):
     """The tables as numpy arrays (f32, i32): see the module docstring and
     csrc/vertex_common.cuh.  Raises ValueError for a texture closure of
@@ -174,6 +260,11 @@ def table_arrays(pack, static):
             sph[:, 13:22] = host(pack.sph_fwd).reshape(ns, 9)
     h[H_NS], h[H_AFFINE] = ns, int(affine)
     h[H_F_SPH], h[H_I_SPH] = b.floats(sph), b.ints(host(pack.sph_mat))
+    mats = (sph[:, 4:13].reshape(ns, 3, 3), sph[:, 13:22].reshape(ns, 3, 3)) if affine else ()
+    node_f, node_i, leaf = sphere_bvh(sph[:, 0:3], sph[:, 3], *mats)
+    h[H_NBVH] = node_f.shape[0]
+    h[H_F_BVH] = b.floats(node_f, align=4)
+    h[H_I_BVH] = b.ints(np.concatenate([node_i.ravel(), leaf]), align=2)
 
     npl = pack.pln_corner.shape[0]
     pln = np.zeros((npl, PLN_F), np.float32)
@@ -386,19 +477,22 @@ def _key_value(x, n):
     return None, 0, int(x) & 0xFFFFFFFF
 
 
-def analytic_hits(pack, static, org, dirn, t_min: float, alive=None):
+def analytic_hits(pack, static, org, dirn, t_min: float, alive=None, counts=None):
     """KV1: (t_sph, i_sph, t_pln, i_pln, tri_tmax) of (n, 3) f32 rays on the
-    card, the plain version's first lines of ops/intersect.py:_intersect."""
+    card, the plain version's first lines of ops/intersect.py:_intersect.
+    With `counts` ((2,) int64), the kernel adds the sphere-BVH nodes its
+    lanes (those of `alive`, or all) visited and the spheres they tested
+    to its slots 0 and 1, one atomic a warp each."""
     n, dev = org.shape[0], org.device
     tb = tables(pack, static)
     _check(dev, (org, torch.float32, (n, 3)), (dirn, torch.float32, (n, 3)),
-           (alive, torch.bool, (n,)))
+           (alive, torch.bool, (n,)), (counts, torch.int64, (2,)))
     f32, i32 = torch.float32, torch.int32
     out = (torch.empty(n, dtype=f32, device=dev), torch.empty(n, dtype=i32, device=dev),
            torch.empty(n, dtype=f32, device=dev), torch.empty(n, dtype=i32, device=dev),
            torch.empty(n, dtype=f32, device=dev))
     if n:
-        _launch("rrt_vertex_hit", (tb.ftab, tb.itab, org, dirn, alive, *out), (n,),
+        _launch("rrt_vertex_hit", (tb.ftab, tb.itab, org, dirn, alive, counts, *out), (n,),
                 (t_min,), dev)
         launches["vertex_hit"] += 1
     return out
@@ -581,22 +675,25 @@ def attributes():
 
 def new_counters(device=None) -> torch.Tensor:
     """A pool step's counters, zeroed: (COUNTER_ROWS, VOLUME_SLOTS) int64
-    on `device`, a row each (ROW_VOLUME, ROW_SPHERE, ROW_K1)."""
+    on `device`, a row each (ROW_VOLUME, ROW_SPHERE, ROW_K1, ROW_KV1)."""
     return torch.zeros((COUNTER_ROWS, VOLUME_SLOTS), dtype=torch.int64, device=device)
 
 
+COUNTER_NAMES = ("volume_hits", "sphere_hits", "k1_leaf_visits", "k1_groups_tested",
+                 "kv1_node_visits", "kv1_sphere_tests")
+
+
 def counter_values(counters) -> dict:
-    """{"volume_hits", "sphere_hits", "k1_leaf_visits", "k1_groups_tested"}
-    of one or more `new_counters` buffers (summed), host ints: one read
-    each."""
-    total = [0] * 4
+    """{COUNTER_NAMES} of one or more `new_counters` buffers (summed), host
+    ints: one read each."""
+    total = [0] * len(COUNTER_NAMES)
     for c in counters:
         rows = c.tolist()
         for k, v in enumerate((sum(rows[ROW_VOLUME]), sum(rows[ROW_SPHERE]),
-                               rows[ROW_K1][0], rows[ROW_K1][1])):
+                               rows[ROW_K1][0], rows[ROW_K1][1],
+                               rows[ROW_KV1][0], rows[ROW_KV1][1])):
             total[k] += v
-    return dict(zip(("volume_hits", "sphere_hits", "k1_leaf_visits", "k1_groups_tested"),
-                    total))
+    return dict(zip(COUNTER_NAMES, total))
 
 
 def fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel, t_min,
@@ -606,17 +703,20 @@ def fused_vertex(pack, static, org, dirn, ctx, light_bias, alive, kernel, t_min,
     it: (emission, weight, new_dir, ended, pos, stats).  With `counters`
     (`new_counters`), KV2 adds the `alive` lanes' scattering events (in a
     scene with volumes) and the `alive` lanes whose closest hit is a sphere
-    (in a scene with spheres) to their rows, one atomic a warp each, and
-    the BVH8 walk its leaf visits and groups tested to its row."""
+    (in a scene with spheres) to their rows, one atomic a warp each, the
+    BVH8 walk its leaf visits and groups tested to its row, and KV1 (in a
+    scene with spheres) the `alive` lanes' sphere-BVH node visits and
+    sphere tests to its row."""
     org, dirn = org.contiguous(), dirn.contiguous()
-    volume_hits = sphere_hits = k1_counts = None
+    volume_hits = sphere_hits = k1_counts = kv1_counts = None
     if counters is not None:
         volume_hits = counters[ROW_VOLUME] if pack.vol_kinds else None
-        sphere_hits = counters[ROW_SPHERE] if pack.sph_center.shape[0] else None
+        if pack.sph_center.shape[0]:
+            sphere_hits, kv1_counts = counters[ROW_SPHERE], counters[ROW_KV1, :2]
         k1_counts = counters[ROW_K1, :2]
     with torch.no_grad():
         t_sph, i_sph, t_pln, i_pln, tri_tmax = analytic_hits(pack, static, org, dirn, t_min,
-                                                             alive)
+                                                             alive, kv1_counts)
         t_tri, i_tri, stats = isect.intersect_triangles(pack, org, dirn, t_min, tri_tmax,
                                                         kernel=kernel, return_stats=True,
                                                         k1_counts=k1_counts)

@@ -129,8 +129,9 @@ def shade_vertex(pack, static, org, dirn, ctx, light_bias, alive,
     (ops/vertex.py:new_counters), if given, has added to its rows in
     place: in a scene with volumes the vertex's free-flight scattering
     events of the `alive` lanes, in a scene with spheres the `alive` lanes
-    whose closest hit is a sphere, and the BVH8 kernel's leaf visits and
-    groups tested (on the card; the CPU's walk counts nothing).  On the
+    whose closest hit is a sphere and the vertex hit kernel's sphere-BVH
+    node visits and sphere tests, and the BVH8 kernel's leaf visits and
+    groups tested (on the card; the CPU's walks count nothing).  On the
     card (ops/vertex.py:use_kernels) this is KV1, the walk, KV-FF (in a
     scene with volumes) and KV2 (ops/vertex.py:fused_vertex); its plain
     version, which the CPU runs, is `intersect` and `shade_hits`.

@@ -479,7 +479,9 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     packets out of all 8-lane packets traced, as the reference's pool
     does, in a scene with volumes the render's free-flight scattering
     events (`volume_hits`), in a scene with spheres the lane bounces whose
-    closest hit is a sphere (`sphere_hits`), and the BVH8 kernel's leaf visits and groups
+    closest hit is a sphere (`sphere_hits`) and the vertex hit kernel's
+    sphere-BVH node visits and sphere tests (`kv1_node_visits`,
+    `kv1_sphere_tests`), and the BVH8 kernel's leaf visits and groups
     tested (`k1_leaf_visits`, `k1_groups_tested`): the step's counters,
     zeroed here and read once the loop has ended.  With `mesh`, n_lanes
     (a multiple of the shard count) is the global pool, of which this
@@ -510,7 +512,8 @@ def run_pool(pack, static, camera, n_pixels: int, spp: int, n_lanes: int,
     if counters:
         sums = counter_sums(mesh, counters)
         if not pack.sph_center.shape[0]:
-            del sums["sphere_hits"]
+            for name in ("sphere_hits", "kv1_node_visits", "kv1_sphere_tests"):
+                del sums[name]
         for name, value in sums.items():
             setattr(metrics, name, value)
     return state

@@ -67,6 +67,12 @@ class RenderMetrics:
     # the render's loop has ended; 0 on the CPU and for the other walks
     k1_leaf_visits: int = 0
     k1_groups_tested: int = 0
+    # the vertex hit kernel's (KV1's) node visits and sphere tests in the
+    # spheres' BVH, of live lanes: the pool step's counter, on the card,
+    # read when the render's loop has ended; 0 on the CPU (its plain loop
+    # walks no tree), None in a scene without spheres
+    kv1_node_visits: Optional[int] = None
+    kv1_sphere_tests: Optional[int] = None
 
     def record_step(self, n_alive: int, n_lanes: int, issued: int,
                     weight: int = 1):
@@ -101,6 +107,9 @@ class RenderMetrics:
         if self.k1_leaf_visits:
             out["k1_leaf_visits"] = self.k1_leaf_visits
             out["k1_groups_tested"] = self.k1_groups_tested
+        if self.kv1_node_visits is not None:
+            out["kv1_node_visits"] = self.kv1_node_visits
+            out["kv1_sphere_tests"] = self.kv1_sphere_tests
         if self.wf_total_packets:
             out["wf_overflow_packets"] = self.wf_overflow_packets
             out["wf_overflow_frac"] = self.wf_overflow_packets / self.wf_total_packets

@@ -40,71 +40,19 @@ sys.modules["jax"] = None  # the port runs without JAX
 
 import torch  # noqa: E402
 
-from in_turns import card, run_in_turns, this_over_other  # noqa: E402
+from in_turns import (build, card, pick, record, run_in_turns,  # noqa: E402
+                      this_over_other, time_graphed_ms, unequal)
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "build", "kv2_closure")
 LANES, SMALL_LANES = 1 << 18, 2048
 # scene: image width (each keeps its own camera: golden_monkey's aperture)
 SCENES = {"golden_monkey": 1200, "cornell_dragon": 1200, "cornell_smoke": 600}
-SMALL_WIDTH = 48
 OUTPUTS = ("emission", "weight", "new_dir", "ended", "pos")
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def build(name, small, dev):
-    """(pack, static, camera) of builtin `name` at its width (SMALL_WIDTH
-    with `small`, the knot cut to 40 x 16), 1 spp, depth 20."""
-    from rust_raytracer_torch import models
-    from rust_raytracer_torch.render.camera import camera_from_config
-    from rust_raytracer_torch.scene import compiler
-    from rust_raytracer_torch.utils import config as cfg
-    from rust_raytracer_torch.utils import procgen
-
-    if small:
-        knot = procgen.torus_knot_mesh
-        procgen.torus_knot_mesh = lambda m, **k: knot(m, **{**k, "rings": 40, "segments": 16})
-    try:
-        scene = models.build(name)
-    finally:
-        if small:
-            procgen.torus_knot_mesh = knot
-    conf = cfg.merge_scene_config(scene.config,
-                                  {"output_width": SMALL_WIDTH if small else SCENES[name]})
-    camera = camera_from_config(conf, cfg.RenderConfig(samples_per_pixel=1, max_depth=20))
-    pack, static = compiler.compile_scene(scene, dev)
-    return pack, static, camera
-
-
-def record(pack, static, camera, lanes):
-    """The input states of the eager pool steps of a 1-spp render."""
-    from rust_raytracer_torch.render import pool as poolmod
-
-    n_pixels = camera.image_width * camera.image_height
-    step = poolmod.make_step(pack, static, camera, n_pixels, 1, 0, graph=False)
-    state = poolmod.init_state(lanes, n_pixels, pack.device)
-    states = []
-    for _ in range(poolmod.max_pool_steps(n_pixels, lanes, camera.max_depth)):
-        states.append(state._replace(accum=state.accum[:0]))
-        state = step(pack, state)
-        if int(state.next_flat) >= n_pixels and not bool(state.active.any()):
-            break
-    return states
-
-
-def pick(states, every):
-    """(tag, state): the first step with live lanes, a mid-render step and a
-    drain step (the first past the middle with under half the lanes live);
-    only the mid step unless `every`."""
-    live = [float(s.active.float().mean()) for s in states]
-    first = next(k for k, x in enumerate(live) if x > 0)
-    mid = len(states) // 2
-    drain = next((k for k in range(mid + 1, len(states)) if live[k] < 0.5), len(states) - 1)
-    picked = [("first", first), ("mid", mid), ("drain", drain)] if every else [("mid", mid)]
-    return [(f"{tag} (step {k + 1})", states[k]) for tag, k in picked]
 
 
 def kv2_inputs(pack, s):
@@ -158,43 +106,6 @@ def plain(pack, static, inp, light_bias):
                                      light_bias), hit
 
 
-def unequal(got, want):
-    """Lanes of two (n, ...) tensors not bit-equal (NaN = NaN)."""
-    if got.dtype.is_floating_point:
-        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
-    else:
-        same = got == want
-    while same.dim() > 1:
-        same = same.all(dim=-1)
-    return int((~same).sum())
-
-
-def time_graphed_ms(fn, reps, dev):
-    """ms a call: CUDA events around one replay of a graph of `reps` calls
-    after a warm-up (the host's clock over `reps` eager calls on the CPU)."""
-    fn()
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda.synchronize(dev)
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize(dev)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def worker(args):
     """KV2 of the package at --worker on the saved inputs: its outputs and
     ms a set, or the error its tables raised."""
@@ -208,7 +119,7 @@ def worker(args):
     out = {"root": os.path.abspath(args.worker)}
     for name in SCENES:
         try:
-            pack, static, camera = build(name, args.small, dev)
+            pack, static, camera = build(name, SCENES[name], args.small, dev)
             if dev.type == "cuda":
                 vertex.tables(pack, static)
         except Exception as e:  # noqa: BLE001 - a checkout that cannot build a scene is recorded
@@ -251,7 +162,7 @@ def main():
     saved, result = {}, {"card": card(), "sets": {}}
     for name in SCENES:
         t0 = time.perf_counter()
-        pack, static, camera = build(name, args.small, dev)
+        pack, static, camera = build(name, SCENES[name], args.small, dev)
         states = record(pack, static, camera, lanes)
         closures = vertex.texture_closures(
             static.tex_program, *(getattr(pack, f).cpu().numpy() for f in (

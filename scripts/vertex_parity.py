@@ -11,9 +11,11 @@ pipeline (its first, a mid-render and a drain step), cornell_dragon with a
 fog sphere (volume hits), a card under a sky and a sun, and
 tests/test_torch_scene.py's texture scene, whose program has every node
 kind (image, checker, solid checker, Perlin marble and turbulence, lerp,
-channel, uv), with every material, and the same scene with one sphere
+channel, uv), with every material, the same scene with one sphere
 under a rotation and a non-uniform scale (every sphere then takes the
-affine branch of KV1 and KV2).  On
+affine branch of KV1 and KV2), and golden_monkey at 1200x800 (461
+spheres under KV1's sphere BVH; its first step: camera rays through the
+aperture, and a mid-render step: bounces).  On
 a set, each kernel and its plain version get the same inputs: KV1 the
 step's rays; KV2 the plain KV1's hits and the walk's; KV3 the plain KV2's
 shading; the box, the key and KV4 the plain KV3's lanes, KV4 the plain
@@ -298,6 +300,9 @@ def hold_set(rep, tag, pack, static, camera, s, kernel, seed=0, quota=None):
 
 def bounds(pack, static, camera, s, inp):
     """Per kernel (bound ms, "bytes" | "operations") at the set's lanes."""
+    from rust_raytracer_torch.ops import vertex
+    from rust_raytracer_torch.render import integrator
+
     n = s.org.shape[0]
     ns, np_ = pack.sph_center.shape[0], pack.pln_corner.shape[0]
     nl = len(static.light_list)
@@ -319,7 +324,14 @@ def bounds(pack, static, camera, s, inp):
              BOX: n * 12 + 24,
              KEY: n * (25 + 8),
              KV4: n * (30 + 93) + (n - issued) * 52}
-    ops = {KV1: 5 + 28 * ns + 45 * np_,
+    # KV1: a plane ~45; with spheres, ~80 a node visit (two boxes) and ~40
+    # a sphere test, the walk's own counts on the set
+    kv1_ops = 5 + 45 * np_
+    if ns:
+        counts = torch.zeros(2, dtype=torch.int64, device=s.org.device)
+        vertex.analytic_hits(pack, static, s.org, s.dirn, integrator.T_MIN, s.active, counts)
+        kv1_ops += (80 * int(counts[0]) + 40 * int(counts[1])) / max(live, 1)
+    ops = {KV1: kv1_ops,
            # merge ~20, hit record ~120, program, shading ~150, the NEE
            # sample ~60 and pdf ~60 a light, six pcg4d draws of ~40
            KV2: 20 + 120 + prog + 150 + 60 + 60 * nl + 6 * 40,
@@ -399,6 +411,8 @@ def run(card, dragon=None, bvh8_renderer=None, wf_renderer=None):
     """Every set (see the module docstring); returns (Report, times of the
     mid BVH8 set).  The dragon renderers are built unless given."""
     from rust_raytracer_torch import models
+    from rust_raytracer_torch.ops import vertex
+    from rust_raytracer_torch.render import integrator
     from rust_raytracer_torch.render.camera import Camera, camera_from_config
     from rust_raytracer_torch.render.renderer import Renderer
     from rust_raytracer_torch.scene import compiler
@@ -444,6 +458,21 @@ def run(card, dragon=None, bvh8_renderer=None, wf_renderer=None):
                 log(f"  {name} {tag}: {int((inp['hits'][1] >= 0).sum())} of {s.org.shape[0]} "
                     f"lanes hit a sphere, each through the affine rows")
         del states, pack
+    monkey = models.build("golden_monkey")
+    cam = camera_from_config(cfg.merge_scene_config(monkey.config, {"output_width": 1200}),
+                             cfg.RenderConfig(samples_per_pixel=1, max_depth=20))
+    pack, static = compiler.compile_scene(monkey, dev)
+    states = record_states(pack, static, cam, "auto")
+    for tag, s in pick(states)[:2]:
+        inp = hold_set(rep, f"golden_monkey {tag}", pack, static, cam, s, "auto")
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        vertex.analytic_hits(pack, static, s.org, s.dirn, integrator.T_MIN, s.active, counts)
+        live = max(int(s.active.sum()), 1)
+        log(f"  golden_monkey {tag}: {int((inp['hits'][1] >= 0).sum())} of {s.org.shape[0]} "
+            f"lanes hit a sphere; KV1's walk: {int(counts[0]) / live:.2f} node visits, "
+            f"{int(counts[1]) / live:.2f} sphere tests a live lane (the loop: "
+            f"{pack.sph_center.shape[0]})")
+    del states, pack
     for name, share in rep.worst_share.items():
         log(f"vertex parity {name}: worst share of a set's lanes not bit-equal {share:.3e} "
             f"(bound {TOLERANCE[name]:.0e}), max |d| {rep.max_abs_err(name):.3e}")

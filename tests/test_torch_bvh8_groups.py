@@ -282,8 +282,11 @@ def test_pool_owns_the_k1_counter():
     a[vertex.ROW_K1, :2] = torch.tensor([3, 5])
     b[vertex.ROW_K1, :2] = torch.tensor([4, 6])
     a[vertex.ROW_VOLUME, 4], b[vertex.ROW_SPHERE, 9] = 2, 8
+    a[vertex.ROW_KV1, :2] = torch.tensor([12, 4])
+    b[vertex.ROW_KV1, :2] = torch.tensor([30, 9])
     assert pool.counter_sums(None, (a, b)) == {
-        "volume_hits": 2, "sphere_hits": 8, "k1_leaf_visits": 7, "k1_groups_tested": 11}
+        "volume_hits": 2, "sphere_hits": 8, "k1_leaf_visits": 7, "k1_groups_tested": 11,
+        "kv1_node_visits": 42, "kv1_sphere_tests": 13}
 
 
 def _reader(name):
@@ -307,3 +310,21 @@ def test_group_test_reader():
     old = types.SimpleNamespace(lane_bounces=10, volume_hits=0)
     assert read(types.SimpleNamespace(traced_units=[unit(old)])) is None
     assert read(types.SimpleNamespace(traced_units=[unit(RenderMetrics())])) is None
+
+
+def test_sphere_test_reader():
+    """sphere_tests_per_bounce.render: KV1's sphere tests over the lane
+    bounces, summed over the traced units; None where the program has no
+    such counter (the parent's RenderMetrics), the scene has no sphere (the
+    counter is None) or nothing was counted (the CPU's plain loop)."""
+    read = _reader("sphere_tests_per_bounce.render")
+    unit = lambda c: types.SimpleNamespace(counters=c)
+    ctx = types.SimpleNamespace(traced_units=[
+        unit(RenderMetrics(lane_bounces=1000, kv1_node_visits=9000, kv1_sphere_tests=3500)),
+        unit(RenderMetrics(lane_bounces=3000, kv1_node_visits=30000, kv1_sphere_tests=12500))])
+    assert read(ctx) == pytest.approx(16000 / 4000)
+    old = types.SimpleNamespace(lane_bounces=10, sphere_hits=3)
+    assert read(types.SimpleNamespace(traced_units=[unit(old)])) is None
+    assert read(types.SimpleNamespace(traced_units=[unit(RenderMetrics(lane_bounces=10))])) is None
+    assert read(types.SimpleNamespace(traced_units=[unit(RenderMetrics(
+        lane_bounces=10, kv1_node_visits=0, kv1_sphere_tests=0))])) is None
